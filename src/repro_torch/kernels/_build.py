@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "fused_xent")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -92,13 +92,20 @@ def load(name: str) -> ctypes.CDLL:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def refuse_graph(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise when a forward wrapper is called where autograd would record a
+    graph: the wrappers compute values only and would silently drop it.
+    ``ops`` differentiates them through ``torch.autograd.Function``s, whose
+    forward runs with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the kernel wrapper is forward only; call "
+                           f"repro_torch.kernels.ops.{kernel}, which differentiates it, "
+                           "or call the wrapper under torch.no_grad()")
+
+
 def check_tensors(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise unless the tensors are what a kernel takes: CUDA, one device,
-    one element type of DTYPE_CODES, a dense last dimension, and no autograd
-    (the kernels are forward only)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{kernel}: the kernel is forward only; call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+    one element type of DTYPE_CODES, and a dense last dimension."""
     first = tensors[0]
     for t in tensors:
         if t.device.type != "cuda":
@@ -111,6 +118,16 @@ def check_tensors(kernel: str, *tensors: torch.Tensor) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"{kernel}: the last dimension must be dense, "
                              f"got strides {t.stride()}")
+
+
+def check_dense(kernel: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless ``t`` is a dense (contiguous) ``dtype`` tensor of ``shape``
+    on ``device``: the side inputs of a kernel (labels, log-sum-exp)."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{kernel}: needs a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device} (contiguous: {t.is_contiguous()})")
 
 
 def stream_handle(device: torch.device) -> int:

@@ -45,7 +45,8 @@ constexpr int kSub = 16;                         // kv columns per softmax updat
 template <typename T, int kBlockK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int skv, int h, int kh, int dh, int dv, int dp,
+                 T* __restrict__ o, float* __restrict__ lse, int sq, int skv, int h, int kh,
+                 int dh, int dv, int dp,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                  int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
                  int window, float scale) {
@@ -162,6 +163,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (qpos >= sq) return;
   const float denom = fmaxf(l, 1e-30f);
+  if (lse != nullptr && part == 0) {
+    lse[(static_cast<int64_t>(bi) * h + hi) * sq + qpos] = m + logf(denom);
+  }
   T* orow = o + ((static_cast<int64_t>(bi) * sq + qpos) * h + hi) * dv;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -174,7 +178,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int kBlockK>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+           int skv,
            int h, int kh, int dh, int dv, long long q_sb, long long q_ss, long long q_sh,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, int causal, int window, float scale, cudaStream_t stream) {
@@ -184,7 +189,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
   flash_fwd_kernel<T, kBlockK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, skv, h, kh, dh, dv, dp, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+      static_cast<T*>(o), lse, sq, skv, h, kh, dh, dv, dp, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
       v_sb, v_ss, v_sh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -198,47 +203,14 @@ constexpr int kMmaThreads = kMmaWarps * 32;  // 128
 constexpr int kMmaBlockK = 64;               // kv rows per tile
 constexpr int kLd = kDMax + 8;               // smem row stride in elements: +16 bytes
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  const __nv_bfloat162 h = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, column-major fragment), fp32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Eight elements [c, c+8) of a k or v row into shared memory, zero past d or
-// past the sequence; one 16-byte load when the source is aligned for it.
-__device__ __forceinline__ void load8(bf16* dst, const bf16* row, int c, int d, bool in,
-                                      bool vec) {
-  if (in && vec && c + 8 <= d) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(row + c);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[e] = (in && c + e < d) ? row[c + e] : __float2bfloat16(0.f);
-  }
-}
-
 // Fragment layouts of m16n8k16 (PTX ISA), with g = lane / 4 and t = lane % 4:
 //   A regs {0,1,2,3} hold rows {g, g+8, g, g+8}, columns {2t, 2t, 2t+8, 2t+8} (+0, +1);
 //   B regs {0,1} hold k rows {2t, 2t+8} (+0, +1) of column g;
 //   C values {0,1,2,3} sit at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int skv, int h,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int sq, int skv, int h,
                      int kh, int dh, int dv, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                      int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                      int64_t v_sh, int causal, int window, float scale, bool kvec, bool vvec) {
@@ -385,6 +357,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t == 0) {
+      lse[(static_cast<int64_t>(bi) * h + hi) * sq + rows[r]] = m[r] + logf(denom);
+    }
     bf16* orow = o + ((static_cast<int64_t>(bi) * sq + rows[r]) * h + hi) * dv;
 #pragma unroll
     for (int dt = 0; dt < kDTiles; ++dt) {
@@ -402,14 +377,15 @@ bool aligned16(const void* p, long long sb, long long ss, long long sh) {
          sh % 8 == 0;
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+               int sq, int skv,
                int h, int kh, int dh, int dv, long long q_sb, long long q_ss, long long q_sh,
                long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                long long v_sh, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
   flash_fwd_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+      static_cast<bf16*>(o), lse, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
       v_ss, v_sh, causal, window, scale, aligned16(k, k_sb, k_ss, k_sh),
       aligned16(v, v_sb, v_ss, v_sh));
   return static_cast<int>(cudaGetLastError());
@@ -420,10 +396,13 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b, int 
 
 // Returns cudaGetLastError() after the launch (0 on success). Strides are in
 // elements; the last dimension of q, k and v is dense; o is a dense
-// (B,Sq,H,Dv) tensor. window <= 0 means no sliding window. The caller
-// guarantees 1 <= Dh, Dv <= 128 and H % KH == 0.
+// (B,Sq,H,Dv) tensor. lse, when not null, is a dense fp32 (B,H,Sq) tensor that
+// receives each row's log-sum-exp of its scaled scores (what the backward
+// kernel recomputes the probabilities from); serving passes null. window <= 0
+// means no sliding window. The caller guarantees 1 <= Dh, Dv <= 128 and
+// H % KH == 0.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, int b, int sq, int skv, int h, int kh, int dh,
+                                   void* o, void* lse, int b, int sq, int skv, int h, int kh, int dh,
                                    int dv, long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh, int causal,
@@ -436,11 +415,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   // Static shared memory per block: 32 KB for fp32 (2 tiles x 32 x 128 x 4 B),
   // 34 KB for bf16 (2 tiles x 64 x 136 x 2 B), under the 48 KB that needs no opt-in.
   if (dtype == kFloat32) {
-    return launch<float, 32>(q, k, v, o, b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb,
+    return launch<float, 32>(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb,
                              k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
   }
   if (dtype == kBFloat16) {
-    return launch_mma(q, k, v, o, b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss,
+    return launch_mma(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss,
                       k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -35,6 +35,7 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
 
     Launches the CUDA kernel on PyTorch's current stream; raises for anything
     the kernel does not take (CPU tensors included)."""
+    _build.refuse_graph("decode_attention", q, k_cache, v_cache)
     _build.check_tensors("decode_attention", q, k_cache, v_cache)
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.ndim != 4:
         raise ValueError(f"decode_attention: q must be 3-D and the caches 4-D, got "

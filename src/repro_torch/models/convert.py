@@ -1,4 +1,5 @@
-"""Move weights between the reference's parameter tree and the port's.
+"""Move weights, and the roundpipe train state, between the reference's
+trees and the port's.
 
 The reference stacks its layers along a leading axis (one pytree whose
 leaves are (L, ...)); the port keeps a list of per-layer dicts. Both keep
@@ -48,6 +49,33 @@ def params_to_numpy(params):
     per_layer = [_map(f32, p) for p in params["layers"]]
     out["layers"] = _stack(per_layer)
     return out
+
+
+_STATE_TREES = ("master", "m", "v")
+
+
+def state_from_jax(state, *, device="cuda"):
+    """The reference's roundpipe train state (``init_roundpipe_state``:
+    ``{"params", "opt": {"master", "m", "v", "step"}}``, pool padded to
+    ``pool_rows``, as nested dicts of numpy arrays) -> the port's, each leaf
+    in its own dtype and the padding rows kept as zero layers. AdamW state
+    only: the reference's Adafactor factors its stacked (L, d) leaves across
+    layers, which per-layer leaves cannot hold."""
+    opt = state["opt"]
+    if set(opt) != {*_STATE_TREES, "step"}:
+        raise NotImplementedError(f"optimizer state with {sorted(opt)}: only AdamW's "
+                                  "{master, m, v, step} converts")
+    out = {k: params_from_jax(opt[k], device=device) for k in _STATE_TREES}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=device)
+    return {"params": params_from_jax(state["params"], device=device), "opt": out}
+
+
+def state_to_numpy(state):
+    """The port's roundpipe train state -> the reference's layout as float32
+    numpy arrays (layers stacked on axis 0), with an int32 step."""
+    opt = {k: params_to_numpy(state["opt"][k]) for k in _STATE_TREES}
+    opt["step"] = np.asarray(int(state["opt"]["step"]), np.int32)
+    return {"params": params_to_numpy(state["params"]), "opt": opt}
 
 
 def _stack(trees):

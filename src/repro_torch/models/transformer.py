@@ -1,4 +1,5 @@
-"""Dense decoder of the port: init, forward, and serving with a KV cache.
+"""Dense decoder of the port: init, forward and loss, and serving with a KV
+cache.
 
 The PyTorch counterpart of the dense GQA branch of
 ``repro/models/transformer.py``. Parameters are plain dicts with the
@@ -16,6 +17,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
 
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, chunked_attention, decode_attention, init_mlp,
@@ -122,17 +126,48 @@ def embed_inputs(params, batch, cfg: ModelConfig):
     return params["embed"][batch["tokens"]]
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Token inputs -> final hidden states (B,S,D)."""
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = True, kv_chunk: int = 1024):
+    """Token inputs -> final hidden states (B,S,D).
+
+    Differentiable. With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward), where the reference wraps each layer in ``jax.remat``.
+    ``kv_chunk`` is accepted as in the reference and unused: the flash kernel
+    tiles by itself."""
+    del kv_chunk
     _require_dense(cfg)
     x = embed_inputs(params, batch, cfg)
     for p in params["layers"]:
-        x = layer_forward(x, p, cfg)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer_forward, x, p, cfg, use_reentrant=False)
+        else:
+            x = layer_forward(x, p, cfg)
     return apply_norm(x, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
 
 
 def lm_head_weights(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def chunked_softmax_xent(x, w_head, labels, *, chunk: int = 512, ignore_index: int = -100):
+    """Cross-entropy without materialising (B,S,V): the fused LM-head kernel
+    streams the vocabulary by itself, so ``chunk`` is accepted and unused.
+    x: (B,S,D); w_head: (D,V); labels: (B,S).  Returns (sum of the per-token
+    losses fp32, number of tokens not labelled ``ignore_index``)."""
+    del chunk
+    d = x.shape[-1]
+    loss = ops.fused_xent(x.reshape(-1, d), w_head, labels.reshape(-1),
+                          ignore_index=ignore_index)
+    return loss.sum(), (labels != ignore_index).sum()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True, kv_chunk: int = 1024,
+            xent_chunk: int = 512):
+    """Mean next-token cross-entropy over the tokens not labelled -100."""
+    x = forward(params, batch, cfg, remat=remat, kv_chunk=kv_chunk)
+    tot, cnt = chunked_softmax_xent(x, lm_head_weights(params, cfg), batch["labels"],
+                                    chunk=xent_chunk)
+    return tot / torch.clamp(cnt, min=1)
 
 
 # ---------------------------------------------------------------------------
