@@ -7,9 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, in order; any failure exits non-zero at once:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` (four
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (five
      libraries: flash attention forward and backward, flash-decode, fused
-     LM-head cross-entropy);
+     LM-head cross-entropy, dequant-on-upload);
   3. hold each kernel against its plain PyTorch version on the card: the
      serving kernels at the serving shapes and over an edge sweep, at the
      tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2); the
@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero at once:
      autograd of ``ref.flash_attention_ref``, the cross-entropy forward
      against ``ref.fused_xent_ref`` and the entry's gradients against its
      autograd (forwards fp32 2e-5 / bf16 2e-2, backwards fp32 1e-4 / bf16
-     2e-2 on the relative norm);
+     2e-2 on the relative norm); ``dequant_rows`` bit-exact (atol 0) against
+     ``ref.dequant_rows_ref`` for int8 and int4 codes, fp32 and bf16 output,
+     at the training shape (the largest slot's rows of a 50,335,744-element
+     layer row), one row of one block, ragged row and block counts, all-zero
+     blocks, every code value and the codes of random weights;
   4. serve full-width qwen3-1.7b (bf16, random weights from a seeded
      ``torch.Generator`` on the card; batch 4, prompt 1024, 32 greedy tokens)
      through ``repro_torch.launch.serve.main`` with the kernels' launch counts
@@ -40,7 +44,18 @@ Phases, in order; any failure exits non-zero at once:
      trace with the device time of each slot kind), and the training kernels
      beside their plain versions, their bounds and a library yardstick
      (SDPA's backward; ``F.cross_entropy(x @ W^T)``);
-  8. print the card's line, the ``kernels`` JSON line, then the result line.
+  8. at full width and 8 layers: the standby prefetch with every row split
+     into chunks gives grads bit-identical to whole-block injection (dense and
+     int8 pool, 2 rounds), and one round through the prefetch path is
+     bit-identical to the one-round whole-block path; then train full width
+     through the launcher with ``--microbatches 8`` (2 rounds, prefetch on):
+     dense, ``--pool-dtype int8 --grad-compress int8`` and ``--pool-dtype int4
+     --grad-compress int8``, each with the counts set to 0 just before and read
+     just after and checked against the plan (dequant: one launch per promote
+     of a slot with layers), finite losses, step ms, peak memory, a traced
+     step and the quantize pass's device time; then the dequant kernel's time
+     at the training shape beside its bound and its plain version;
+  9. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -766,6 +781,295 @@ def phase_train_timings(errs, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the dequant kernel
+# ---------------------------------------------------------------------------
+
+QUANT_MICRO = 8                              # --microbatches of the quantized runs
+FULL_ROW = 50_335_744                        # elements of one qwen3-1.7b layer row
+
+
+def _quant_plan(pool_dtype="int8", n_layers=None):
+    from repro_torch.core.plan import plan_from_config
+    from repro_torch.models.config import get_config
+    cfg = get_config(ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, plan_from_config(cfg, TRAIN_WORKERS, pool_dtype=pool_dtype)
+
+
+def _dequant_inputs(rows, elems, packed, fill, gen):
+    """codes and fp32 scales of ``rows`` rows of ``elems`` elements (a
+    multiple of 256): random codes and scales, every code value, all-zero
+    blocks, or the codes of random weights."""
+    import torch
+    from repro_torch.kernels.dequant import QUANT_BLOCK, quantize_rows
+    nb = elems // QUANT_BLOCK
+    cols = elems // 2 if packed else elems
+    if fill == "weights":
+        return quantize_rows(torch.randn((rows, elems), generator=gen, device=DEVICE),
+                             bits=4 if packed else 8)
+    if fill == "zeros":
+        x = torch.randn((rows, elems), generator=gen, device=DEVICE)
+        x.view(rows, nb, QUANT_BLOCK)[:, ::2] = 0.0
+        return quantize_rows(x, bits=4 if packed else 8)
+    if fill == "every":
+        codes = torch.arange(rows * cols, device=DEVICE).remainder(256).reshape(rows, cols)
+        codes = codes.to(torch.uint8) if packed else (codes - 128).to(torch.int8)
+    else:
+        lo, hi = (0, 256) if packed else (-128, 128)
+        codes = torch.randint(lo, hi, (rows, cols), generator=gen, device=DEVICE,
+                              dtype=torch.int16).to(torch.uint8 if packed else torch.int8)
+    scales = torch.rand((rows, nb), generator=gen, device=DEVICE) * 0.05 + 1e-4
+    return codes, scales
+
+
+def dequant_cases():
+    """(label, rows, elements, fill): the training shape (the largest slot's
+    rows of a qwen3-1.7b layer row), one row of one block, ragged row and
+    block counts, all-zero blocks, every code value, and the codes of random
+    weights. Each runs for int8 and int4 codes, fp32 and bf16 output."""
+    _, p = _quant_plan()
+    return [("training", p.max_block, FULL_ROW, "random"),
+            ("one-block", 1, 256, "random"),
+            ("ragged-3x5", 3, 5 * 256, "random"),
+            ("ragged-7x133", 7, 133 * 256, "random"),
+            ("ragged-130x3", 130, 3 * 256, "random"),
+            ("zero-blocks", 5, 64 * 256, "zeros"),
+            ("every-code", 4, 256 * 256, "every"),
+            ("weights", 3, 4096 * 256, "weights")]
+
+
+def phase_dequant_kernel():
+    """``dequant_rows`` against its plain version at atol 0."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant import dequant_rows
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    n = 0
+    for label, rows, elems, fill in dequant_cases():
+        for packed in (False, True):
+            codes, scales = _dequant_inputs(rows, elems, packed, fill, gen)
+            plain = ref.dequant_rows_ref(codes, scales)
+            for dtype in (torch.float32, torch.bfloat16):
+                got = dequant_rows(codes, scales, out_dtype=dtype)
+                torch.cuda.synchronize()
+                want = plain.to(dtype)
+                err = (got.float() - want.float()).abs().max().item()
+                check(got.dtype == dtype and got.shape == want.shape and torch.equal(got, want),
+                      f"dequant_rows[{label}, {'int4' if packed else 'int8'} -> "
+                      f"{dtype_name(dtype)}]: max abs err {err:.3e}, not bit-exact")
+                n += 1
+                del got, want
+            del codes, scales, plain
+    torch.cuda.empty_cache()
+    print(f"kernels vs plain: dequant_rows {n} cases (int8 and int4, fp32 and bf16 out), "
+          "all bit-exact (atol 0)")
+    return {"dequant_rows": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the quantized, multi-round training path
+# ---------------------------------------------------------------------------
+
+def _quant_counters():
+    from repro_torch.kernels.dequant import dequant_rows
+    return dict(_train_counters(), dequant_rows=dequant_rows)
+
+
+def _quant_step_cfg(plan, pool_dtype, grad_compress, lr=3e-4):
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.optim import OptConfig
+    return StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                      xent_chunk=min(256, TRAIN_SEQ), partition=plan,
+                      n_microbatches=QUANT_MICRO, pool_dtype=pool_dtype,
+                      grad_compress=grad_compress, opt=OptConfig(lr=lr))
+
+
+def phase_quant_train(pool_dtype, grad_compress):
+    """The launcher's multi-round run (prefetch on, R = 2) with the pool in
+    ``pool_dtype`` and ``grad_compress`` deposits, the counts set to 0 just
+    before and read just after; then, on its final state, one warm step and
+    one traced step, and (quantized pools) the quantize pass timed alone."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_train_step
+    from repro_torch.core.ring import OneCardTransport, RingMachine
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.models.config import get_config
+
+    counters = _quant_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    argv = ["--arch", ARCH, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+            "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatches", str(QUANT_MICRO), "--pool-dtype", pool_dtype,
+            "--grad-compress", grad_compress, "--steps", str(TRAIN_STEPS), "--log-every", "1",
+            "--device", DEVICE]
+    out = train.main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    plan = out["plan"]
+    n, layers, f = TRAIN_WORKERS, plan.n_layers, plan.fused.size
+    rounds = plan.rounds_for(QUANT_MICRO)
+    per_step = TRAIN_STEPS * rounds
+    quant = pool_dtype != "none"
+    want = {"flash_attention": per_step * n * (2 * layers - f),
+            "flash_attention_bwd": per_step * n * layers,
+            "fused_xent": per_step * n,
+            "dequant_rows": per_step * sum(1 for st in plan.stages if st.size) if quant else 0}
+    label = f"pool {pool_dtype}, deposits {grad_compress}, R={rounds}"
+    print(f"quantized train ({label}) launches: {launches} (the plan predicts {want}), peak "
+          f"memory {peak / 1e9:.2f} GB, step ms {[x * 1e3 for x in out['step_s']]}")
+    check(launches == want, f"training launches ({label}) {launches} != the plan's {want}")
+    check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
+    check(("grad_residual" in out["state"]["opt"]) == (grad_compress != "none"),
+          "the residual is not where the state keeps it")
+
+    cfg = get_config(ARCH)
+    step, _ = build_roundpipe_train_step(
+        cfg, TRAIN_WORKERS, _quant_step_cfg(plan, pool_dtype, grad_compress), TRAIN_BATCH,
+        TRAIN_SEQ, plan=plan, round_major=True)
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                         rounds=rounds, seed=9))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    box = {"s": out.pop("state")}
+
+    def one():
+        box["s"], m = step(box["s"], batch)
+        check(math.isfinite(float(m["loss"])), "non-finite loss in the traced steps")
+
+    one()
+    traced = _trace(one, 1)
+    quantize_ms = None
+    if quant:
+        layers_ = box["s"]["params"]["layers"]
+        rm = RingMachine(cfg=cfg, plan=plan, n_workers=TRAIN_WORKERS, l_pad=len(layers_),
+                         transport=OneCardTransport(TRAIN_WORKERS), pool_template=layers_[0],
+                         pool_dtype=pool_dtype)
+        with torch.no_grad():
+            quantize_ms = _time_ms(lambda: rm.quantize_pool(rm.shards(layers_)), [()], 2)
+    del box
+    torch.cuda.empty_cache()
+    result = {"launches": launches, "step_ms": [x * 1e3 for x in out["step_s"]],
+              "losses": out["losses"], "peak_memory_gb": peak / 1e9, "traced_step": traced,
+              "quantize_pass_ms": quantize_ms}
+    if quant and isinstance(traced, dict) and "dequant_ms" in traced:
+        result["dequant_share_of_traced_device_busy"] = (traced["dequant_ms"]
+                                                          / traced["device_busy_ms"])
+    return result
+
+
+def _forced_chunks(plan):
+    """The plan's prefetch program with every row split into three chunks or
+    more (``tests/roundpipe_subprocess.py`` prefetch modes)."""
+    biggest = max(int(c.upload_stream_bytes) for c in plan.layer_costs[:plan.n_layers])
+    program = plan.prefetch_program(chunk_limit=max(1, biggest // 3))
+    n_chunks = sum(1 for table in program.uploads for cu in table if cu.row >= 0)
+    check(n_chunks > plan.n_layers, "row chunk splitting did not engage")
+    return program, n_chunks
+
+
+def phase_ring_bit_identity():
+    """At full width and 8 layers, bf16 weights, R = 2: the standby prefetch
+    with every row split into chunks gives grads bit-identical to whole-block
+    injection, dense and int8; and R = 1 through the prefetch path is
+    bit-identical to the one-round whole-block path. Sequences of 32 tokens
+    (one kv tile of the flash backward, whose dQ sums by atomics) and tokens
+    that occur once (the embedding scatter sums by atomics) keep both runs
+    deterministic, so a difference can only come from the standby."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_grads_fn, pad_pool
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import tree_leaves
+
+    seq, layers = 32, 8
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    report = {}
+
+    def batch_of(rows, cfg):
+        perm = torch.randperm(cfg.vocab_size, generator=gen, device=DEVICE)
+        tokens = perm[:rows * seq].reshape(rows, seq)
+        labels = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen, device=DEVICE)
+        labels[:, :3] = -100
+        return {"tokens": tokens, "labels": labels}
+
+    def same(a, b):
+        la, lb = tree_leaves(list(a)), tree_leaves(list(b))
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+    for pool_dtype in ("none", "int8"):
+        cfg, plan = _quant_plan(pool_dtype, n_layers=layers)
+        params = pad_pool(T.init_params(cfg, gen, dtype=torch.bfloat16, device=DEVICE), cfg,
+                          TRAIN_WORKERS)
+        batch = batch_of(2 * TRAIN_BATCH, cfg)
+        program, n_chunks = _forced_chunks(plan)
+        kw = dict(n_microbatches=2 * TRAIN_WORKERS, pool_dtype=pool_dtype)
+        whole = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan, **kw)(params, batch)
+        chunked = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan, prefetch_program=program,
+                                           **kw)(params, batch)
+        again = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan, **kw)(params, batch)
+        check(same(whole, again), f"pool {pool_dtype}: two whole-block runs differ: the "
+                                  "check is not deterministic")
+        check(same(whole, chunked), f"pool {pool_dtype}: prefetch with {n_chunks} chunks is "
+                                    "not bit-identical to whole-block injection")
+        report[f"prefetch_{pool_dtype}_chunks"] = n_chunks
+        if pool_dtype == "none":
+            batch1 = batch_of(TRAIN_BATCH, cfg)
+            one_round = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan)(params, batch1)
+            r1 = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan,
+                                          n_microbatches=TRAIN_WORKERS,
+                                          prefetch_program=plan.prefetch_program())(params,
+                                                                                    batch1)
+            check(same(one_round, r1), "R=1 with prefetch is not bit-identical to the "
+                                       "one-round whole-block path")
+        del params, whole, chunked, again
+    torch.cuda.empty_cache()
+    print(f"ring bit-identity, full width, {layers} layers, bf16, seq {seq}: prefetch == "
+          f"whole-block (dense {report['prefetch_none_chunks']} and int8 "
+          f"{report['prefetch_int8_chunks']} chunk uploads, R=2), R=1 == the one-round path")
+    return report
+
+
+def phase_dequant_timings(errs, launches):
+    """The dequant kernel at the training shape (the largest slot's rows,
+    int8 codes -> bf16, as the main path calls it) beside its bound and its
+    plain version; int4 -> bf16 and int8 -> fp32 on the side. No single
+    PyTorch call computes this function, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant import QUANT_BLOCK, dequant_rows
+    _, p = _quant_plan()
+    rows, elems = p.max_block, FULL_ROW
+    nb = elems // QUANT_BLOCK
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    by_format = {}
+    row = None
+    for packed, dtype in ((False, torch.bfloat16), (True, torch.bfloat16),
+                          (False, torch.float32)):
+        sets = [_dequant_inputs(rows, elems, packed, "random", gen) for _ in range(2)]
+        ms = _time_ms(lambda c, s: dequant_rows(c, s, out_dtype=dtype), sets, 10)
+        nbytes = rows * (elems // (2 if packed else 1) + nb * 4
+                         + elems * (2 if dtype == torch.bfloat16 else 4))
+        key = f"{'int4' if packed else 'int8'}->{dtype_name(dtype)}"
+        by_format[key] = {"ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        if row is None:
+            plain_ms = _time_ms(lambda c, s: ref.dequant_rows_ref(c, s).to(dtype), sets[:1], 3)
+            row = _row("dequant_rows", "src/repro_torch/kernels/csrc/dequant.cu",
+                       "src/repro/kernels/dequant.py:97", launches, errs, ms, plain_ms, None,
+                       nbytes, rows * elems, "float32")
+            row["shape"] = f"{rows} rows x {elems} elements, int8 -> bfloat16"
+            row["library_note"] = "none: no single PyTorch call dequantizes blockwise codes"
+        del sets
+        torch.cuda.empty_cache()
+    row["by_format"] = by_format
+    print(f"dequant_rows timings: {json.dumps(by_format)}")
+    return row
+
+
 def _trace(fn, calls):
     """Per call: host wall time under the profiler; the device's busy time
     (the sum of its kernel and copy events) and share of that wall time; the
@@ -801,6 +1105,9 @@ def _trace(fn, calls):
     out = {"wall_ms": wall * 1e3 / calls, "device_busy_ms": busy / calls,
            "busy_share": busy / (wall * 1e3), "device_events": len(events) / calls,
            "top_ms": {name[:60]: us / 1e3 / calls for name, us in top}}
+    dequant = sum(us for name, us in by_name.items() if "dequant_kernel" in name)
+    if dequant:
+        out["dequant_ms"] = dequant / 1e3 / calls
     if ranges:
         out["slot_kinds_ms"] = {k: us / 1e3 / calls for k, us in sorted(by_kind.items())}
     return out
@@ -833,17 +1140,25 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
+    errs.update(phase_dequant_kernel())
     served, launches = phase_serve()
     rows = phase_timings(served, errs, launches)
     del served
     out, train_launches, peak = phase_train()
     losses, times, traced = phase_repeated_batch(out)
     ring = phase_ring_vs_single()
-    for name, n in train_launches.items():   # launches over the two main-path runs
+    bit_identity = phase_ring_bit_identity()
+    quant = {pool: phase_quant_train(pool, compress)
+             for pool, compress in (("none", "none"), ("int8", "int8"), ("int4", "int8"))}
+    for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
+    for q in quant.values():
+        for name, n in q["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows += phase_train_timings(errs, launches)
+    rows.append(phase_dequant_timings(errs, launches))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = sorted(out["step_s"][1:] + times)
     timings = {"train_run_step_ms": [x * 1e3 for x in out["step_s"]],
@@ -854,6 +1169,9 @@ def main() -> int:
                "repeated_batch_losses": losses, "ring_vs_single": ring,
                "traced_step": traced}
     print("train timings " + json.dumps(timings))
+    print("quantized train timings " + json.dumps(
+        {"ring_bit_identity": bit_identity,
+         **{f"pool_{pool}_R{QUANT_MICRO // TRAIN_WORKERS}": q for pool, q in quant.items()}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

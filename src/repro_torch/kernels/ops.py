@@ -13,6 +13,7 @@ import torch
 
 from . import ref
 from .decode_attention import decode_attention as _decode_kernel
+from .dequant import dequant_rows as _dequant_kernel
 from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_kernel
 from .fused_xent import FusedXent
@@ -53,3 +54,12 @@ def fused_xent(x, w, labels, *, ignore_index=-100):
     fwd = (functools.partial(ref.fused_xent_ref, return_lse=True)
            if x.device.type == "cpu" else _xent_kernel)
     return FusedXent.apply(x, w, labels, ignore_index, fwd)
+
+
+def dequant_rows(codes, scales, *, block=256, out_dtype=torch.float32):
+    """Dequant-on-upload: blockwise-absmax codes (int8, or uint8 nibble pairs)
+    and (R, nb) fp32 scales -> (R, nb*block) rows in ``out_dtype``, written
+    straight in that type on the card."""
+    if codes.device.type == "cpu":
+        return ref.dequant_rows_ref(codes, scales, block=block).to(out_dtype)
+    return _dequant_kernel(codes, scales, block=block, out_dtype=out_dtype)

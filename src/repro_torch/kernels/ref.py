@@ -94,6 +94,20 @@ def xent_block_grad(logits, lse, labels, v0, g):
     return p * g[:, None]
 
 
+def dequant_rows_ref(codes, scales, *, block=256):
+    """(R, nb*block) int8 codes, or (R, nb*block//2) uint8 nibble pairs (element
+    2i in the low nibble of byte i), with (R, nb) fp32 per-block scales ->
+    (R, nb*block) fp32 rows: one fp32 multiply per element."""
+    if codes.dtype == torch.uint8:
+        p = codes.to(torch.int32)
+        lo, hi = p & 0xF, (p >> 4) & 0xF
+        lo, hi = lo - 16 * (lo >> 3), hi - 16 * (hi >> 3)
+        codes = torch.stack([lo, hi], dim=-1).reshape(codes.shape[0], -1)
+    r, nb = scales.shape
+    blocks = codes.reshape(r, nb, block).float()
+    return (blocks * scales.float()[..., None]).reshape(r, nb * block)
+
+
 def decode_attention_ref(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     """q: (B,H,Dh); caches: (B,S,KH,Dh|Dv); n_valid: an int, or an int tensor
     of shape () or (B,) -> (B,H,Dv).

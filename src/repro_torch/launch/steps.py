@@ -34,11 +34,7 @@ class StepConfig:
     kv_chunk: int = 1024
     xent_chunk: int = 256
     partition: Any = None
-    # The reference defaults to True. Its prefetch path is bit-identical to
-    # whole-block injection (same function, other transfer order), and the
-    # port has only whole-block injection in this slice, so False here; the
-    # prefetch slice restores True.
-    prefetch: bool = False
+    prefetch: bool = True
     prefetch_chunk_limit: Optional[int] = None
     lora: Any = None
     n_microbatches: Optional[int] = None

@@ -2,16 +2,21 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --strategy roundpipe --mesh 1x4 --batch 8 --seq 1024 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --strategy roundpipe --mesh 1x4 --batch 8 --seq 1024 --microbatches 8 \\
+      --pool-dtype int8 --grad-compress int8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
       --strategy roundpipe --mesh 1x4 --steps 2 --device cpu
 
 The flags are those of ``repro.launch.train`` (``docs/cli.md``) and
-``--device``. ``--mesh 1xN`` runs N logical ring workers on the one device.
-What this slice does not run yet is refused by name: a data axis, ``gspmd``,
-``--async-opt``, ``--elastic``, ``--async-ckpt``, ``--lora-rank``,
-``--pool-dtype``, ``--grad-compress``, ``--microbatches``, ``--schedule
-searched``, and checkpoints (``--ckpt-dir``, ``--ckpt-every``). Runs on the
-card unless ``--device cpu``.
+``--device``. ``--mesh 1xN`` runs N logical ring workers on the one device,
+with the chunked standby prefetch; ``--microbatches M`` runs R = M/N rounds
+per step from round-major batches; ``--pool-dtype`` streams the pool as int8
+or int4 codes; ``--grad-compress int8`` makes the deposits error-feedback
+int8. What this slice does not run yet is refused by name: a data axis,
+``gspmd``, ``--async-opt``, ``--elastic``, ``--async-ckpt``, ``--lora-rank``,
+``--schedule searched``, and checkpoints (``--ckpt-dir``, ``--ckpt-every``).
+Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -35,14 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="roundpipe stage split: cost-model auto-partition or the "
                          "1-layer-per-stage split")
     ap.add_argument("--microbatches", type=int, default=0,
-                    help="not ported yet: one round per step")
+                    help="micro-batches per step M = R*N: R > 1 stitches R rounds back to "
+                         "back per optimizer step, accumulating gradients across rounds; "
+                         "0 -> one round (M = N)")
     ap.add_argument("--lora-rank", type=int, default=0, help="not ported yet")
     ap.add_argument("--lora-alpha", type=float, default=16.0, help="not ported yet")
     ap.add_argument("--lora-targets", default="attn,mlp", help="not ported yet")
     ap.add_argument("--pool-dtype", default="none", choices=["none", "int8", "int4"],
-                    help="not ported yet")
+                    help="stream the resident pool quantized (blockwise-absmax codes + fp32 "
+                         "scales, dequantized by the kernel at promote time); the master "
+                         "weights stay full precision")
     ap.add_argument("--grad-compress", default="none", choices=["none", "int8"],
-                    help="not ported yet")
+                    help="int8 error-feedback compressed gradient deposits; the residual "
+                         "rides in the optimizer state")
     ap.add_argument("--schedule", default="hand", choices=["hand", "searched"],
                     help="'searched' is not ported yet")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -69,9 +79,6 @@ def _refusals(args, n_data: int) -> list[str]:
         "--elastic": args.elastic,
         "--async-ckpt": args.async_ckpt,
         "--lora-rank": args.lora_rank > 0,
-        "--pool-dtype": args.pool_dtype != "none",
-        "--grad-compress": args.grad_compress != "none",
-        "--microbatches": args.microbatches != 0,
         "--schedule searched": args.schedule != "hand",
         "--ckpt-dir (checkpoints)": args.ckpt_dir is not None,
         "--ckpt-every (checkpoints)": args.ckpt_every is not None,
@@ -112,17 +119,32 @@ def run_training(args) -> dict:
     if args.smoke:
         cfg = smoke_config(cfg)
     partition = uniform_partition(cfg.n_layers) if args.partition == "uniform" else None
-    plan = plan_from_config(cfg, n_model, partition=partition)
-    sim = simulate_plan(plan, n_model, round_size=n_model)
+    plan = plan_from_config(cfg, n_model, partition=partition, pool_dtype=args.pool_dtype)
+    microbatches = args.microbatches or None
+    m_sim = microbatches or n_model
+    r_sim = plan.rounds_for(m_sim)
+    sim = simulate_plan(plan, m_sim, round_size=n_model)
     print(plan.describe())
-    print(f"simulated bubble ratio (1 round, M={n_model}): {sim.bubble_ratio:.4f}")
+    print(f"simulated bubble ratio ({r_sim} round{'s' if r_sim != 1 else ''}, M={m_sim}): "
+          f"{sim.bubble_ratio:.4f}")
+    if args.pool_dtype != "none":
+        dense = plan_from_config(cfg, n_model, partition=plan.partition)
+        q_up = sum(plan.stage_bytes) * r_sim
+        d_up = sum(dense.stage_bytes) * r_sim
+        print(f"quantized pool ({args.pool_dtype}): upload {q_up / 2**20:.1f} MiB/step "
+              f"({q_up / d_up:.3f}x of the dense {d_up / 2**20:.1f} MiB)")
     step_cfg = StepConfig(strategy="roundpipe", grad_accum=1, async_optimizer=False,
                           sequence_parallel=n_model > 1, kv_chunk=min(1024, args.seq),
                           xent_chunk=min(256, args.seq), partition=plan,
-                          opt=OptConfig(lr=args.lr))
-    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, args.seq, args.batch))
+                          n_microbatches=microbatches, pool_dtype=args.pool_dtype,
+                          grad_compress=args.grad_compress, opt=OptConfig(lr=args.lr))
+    # round-major pipeline: multi-round steps take (R, B/R, S) batches
+    # straight from the dataset, with no reshape in the step
+    rounds_data = plan.rounds_for(microbatches) if microbatches else 0
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, args.seq, args.batch,
+                                         rounds=rounds_data))
     step, plan = build_roundpipe_train_step(cfg, n_model, step_cfg, args.batch, args.seq,
-                                            plan=plan)
+                                            plan=plan, round_major=rounds_data > 0)
     gen = torch.Generator(device=device).manual_seed(0)
     state = init_roundpipe_state(gen, cfg, step_cfg, n_workers=n_model, device=device)
 

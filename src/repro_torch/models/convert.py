@@ -58,23 +58,32 @@ def state_from_jax(state, *, device="cuda"):
     """The reference's roundpipe train state (``init_roundpipe_state``:
     ``{"params", "opt": {"master", "m", "v", "step"}}``, pool padded to
     ``pool_rows``, as nested dicts of numpy arrays) -> the port's, each leaf
-    in its own dtype and the padding rows kept as zero layers. AdamW state
-    only: the reference's Adafactor factors its stacked (L, d) leaves across
-    layers, which per-layer leaves cannot hold."""
+    in its own dtype and the padding rows kept as zero layers. The
+    error-feedback residual ``opt["grad_residual"]`` (stacked like the pool)
+    becomes a list of fp32 layer dicts. AdamW state only: the reference's
+    Adafactor factors its stacked (L, d) leaves across layers, which
+    per-layer leaves cannot hold."""
     opt = state["opt"]
-    if set(opt) != {*_STATE_TREES, "step"}:
+    if set(opt) - {"grad_residual"} != {*_STATE_TREES, "step"}:
         raise NotImplementedError(f"optimizer state with {sorted(opt)}: only AdamW's "
-                                  "{master, m, v, step} converts")
+                                  "{master, m, v, step} and grad_residual convert")
     out = {k: params_from_jax(opt[k], device=device) for k in _STATE_TREES}
     out["step"] = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=device)
+    if "grad_residual" in opt:
+        out["grad_residual"] = params_from_jax({"layers": opt["grad_residual"]},
+                                               device=device)["layers"]
     return {"params": params_from_jax(state["params"], device=device), "opt": out}
 
 
 def state_to_numpy(state):
     """The port's roundpipe train state -> the reference's layout as float32
-    numpy arrays (layers stacked on axis 0), with an int32 step."""
+    numpy arrays (layers stacked on axis 0), with an int32 step and, when the
+    state has one, the stacked residual."""
     opt = {k: params_to_numpy(state["opt"][k]) for k in _STATE_TREES}
     opt["step"] = np.asarray(int(state["opt"]["step"]), np.int32)
+    if "grad_residual" in state["opt"]:
+        opt["grad_residual"] = params_to_numpy({"layers": state["opt"]["grad_residual"]})[
+            "layers"]
     return {"params": params_to_numpy(state["params"]), "opt": opt}
 
 

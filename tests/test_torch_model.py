@@ -26,6 +26,18 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import get_config
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: smoke-width ops gain nothing from more, and the
+    suite's parallel workers share the cores with the JAX package's
+    multi-device subprocess tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen3-1.7b"
 
 

@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.core import partition as j_partition
@@ -28,6 +29,18 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import partition, plan
 from repro_torch.core import simulator
 from repro_torch.models.config import ModelConfig, get_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: smoke-width ops gain nothing from more, and the
+    suite's parallel workers share the cores with the JAX package's
+    multi-device subprocess tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = ["core/partition.py", "core/schedule.py", "core/transfer.py", "core/plan.py",
@@ -170,7 +183,7 @@ def test_port_trains_with_jax_and_the_reference_blocked():
         "                  '--device', 'cpu'])\n"
         "assert len(out['losses']) == 1\n"
         "print('ISOLATED_OK')\n")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr

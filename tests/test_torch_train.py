@@ -56,6 +56,18 @@ from repro_torch.models.convert import (params_from_jax, params_to_numpy, state_
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 from repro_torch.optim.adam import tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: smoke-width ops gain nothing from more, and the
+    suite's parallel workers share the cores with the JAX package's
+    multi-device subprocess tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-1.7b"
 N, B, S = 4, 8, 16
@@ -310,11 +322,15 @@ def test_ring_matches_single_program(kind, n_layers):
 def test_ring_refuses_what_is_not_ported():
     _, cfg = configs(7)
     p = plan.plan_from_config(cfg, N)
-    for kw, item in [({"lora": object()}, "LoRA"), ({"pool_dtype": "int8"}, "quantized pool"),
-                     ({"grad_compress": "int8"}, "quantized pool"),
-                     ({"n_microbatches": 8}, "multi-round"),
-                     ({"prefetch_program": object()}, "multi-round"), ({"g0": 1}, "supervisor")]:
+    for kw, item in [({"lora": object()}, "LoRA"), ({"g0": 1}, "supervisor")]:
         with pytest.raises(NotImplementedError, match=item):
+            dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw)
+    # prefetch, rounds, the quantized pool and compressed deposits are ported
+    for kw in [{"pool_dtype": "int8"}, {"pool_dtype": "int4"}, {"grad_compress": "int8"},
+               {"n_microbatches": 8}, {"prefetch_program": p.prefetch_program()}]:
+        assert callable(dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw))
+    for kw in [{"pool_dtype": "int2"}, {"grad_compress": "int4"}]:
+        with pytest.raises(ValueError, match="unknown"):
             dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw)
 
 
@@ -379,7 +395,7 @@ def test_launcher_tracks_the_reference_loop(dtype, rtol, monkeypatch):
 
 
 def _run_cli(*argv):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=120)
 
@@ -396,9 +412,14 @@ def test_train_cli_on_cpu_and_refusals():
     if not torch.cuda.is_available():
         r = _run_cli(*base, "--steps", "1")
         assert r.returncode != 0 and "CUDA is not available" in r.stderr
+    r = _run_cli(*base, "--steps", "1", "--microbatches", "8", "--log-every", "1",
+                 "--device", "cpu")
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[1].startswith("simulated bubble ratio (2 rounds, M=8): ")
+    assert lines[2].startswith("step     0 loss ") and lines[3].startswith("done: 1 steps")
     for extra, name in [(["--async-opt"], "--async-opt"), (["--ckpt-dir", "x"], "--ckpt-dir"),
-                        (["--mesh", "2x4"], "data axis"), (["--lora-rank", "4"], "--lora-rank"),
-                        (["--microbatches", "8"], "--microbatches")]:
+                        (["--mesh", "2x4"], "data axis"), (["--lora-rank", "4"], "--lora-rank")]:
         r = _run_cli(*base, *extra, "--device", "cpu")
         assert r.returncode != 0 and name in r.stderr, (extra, r.stderr)
 
@@ -411,10 +432,9 @@ def test_step_config_has_the_reference_fields_and_defaults():
     ref_default, got_default = JStepConfig(), StepConfig()
     differ = {name for name in ref_fields
               if getattr(ref_default, name) != getattr(got_default, name)}
-    # the dtype and optimizer fields hold the port's own objects; prefetch
-    # is off until the prefetch slice (its field comment says why)
-    assert differ == {"accum_dtype", "opt", "prefetch"}
-    assert got_default.accum_dtype == torch.float32 and got_default.prefetch is False
+    # the dtype and optimizer fields hold the port's own objects
+    assert differ == {"accum_dtype", "opt"}
+    assert got_default.accum_dtype == torch.float32 and got_default.prefetch is True
     assert dataclasses.asdict(got_default.opt).keys() == dataclasses.asdict(ref_default.opt).keys()
 
 
