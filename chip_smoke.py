@@ -7,11 +7,14 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, in order; any failure exits non-zero at once:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` (five
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (seven
      libraries: flash attention forward and backward, flash-decode, fused
-     LM-head cross-entropy, dequant-on-upload);
+     LM-head cross-entropy, dequant-on-upload, the RWKV6 scan and the Mamba
+     selective scan);
   3. hold each kernel against its plain PyTorch version on the card: the
-     serving kernels at the serving shapes and over an edge sweep, at the
+     serving kernels at the serving shapes of qwen3-1.7b and hymba-1.5b
+     (flash at group 5, d_head 64, window 1024; flash-decode over its full
+     and a partly filled ring of 1024 slots) and over an edge sweep, at the
      tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2); the
      training kernels at the training shapes and over an edge sweep, the
      flash backward against ``ref.flash_attention_bwd_ref`` and against
@@ -23,6 +26,13 @@ Phases, in order; any failure exits non-zero at once:
      at the training shape (the largest slot's rows of a 50,335,744-element
      layer row), one row of one block, ragged row and block counts, all-zero
      blocks, every code value and the codes of random weights;
+     ``rwkv_scan`` and ``ssm_scan`` against ``ref.rwkv_scan_ref`` and
+     ``ref.ssm_scan_ref`` (y and the final state; fp32 1e-4 and bf16 2e-2,
+     relative plus the same share of the largest value) at the prefill and
+     decode shapes of rwkv6-7b and hymba-1.5b and over a ragged sweep (head
+     and state sizes 7 to 64, sequences off the chunk sizes, d_inner 3200
+     and small ragged ones, the model's decays and sigmoid ones, random
+     initial states, misaligned inputs);
   4. serve full-width qwen3-1.7b (bf16, random weights from a seeded
      ``torch.Generator`` on the card; batch 4, prompt 1024, 32 greedy tokens)
      through ``repro_torch.launch.serve.main`` with the kernels' launch counts
@@ -31,7 +41,20 @@ Phases, in order; any failure exits non-zero at once:
      same prefix one token longer (bf16 and, at two layers, fp32);
   5. time the serving steps, and the serving kernels beside their plain
      versions, their bounds and ``scaled_dot_product_attention`` (a
-     yardstick only: the port never calls it);
+     yardstick only: the port never calls it); then serve full-width
+     rwkv6-7b (prompt 1024) and hymba-1.5b (prompt 1536, past its window of
+     1024) the same way, batch 4 and 32 greedy tokens, each with the counts
+     set to 0 just before and read just after (rwkv6-7b: 1056 ``rwkv_scan``
+     launches and no attention; hymba-1.5b: 32 flash, 1024 flash-decode and
+     1056 ``ssm_scan``), finite logits, decode against a one-longer prefill
+     (bf16 on the relative norm at a fixed bar, 3e-2 rwkv6-7b and 6e-2
+     hymba-1.5b, which a lost recurrent state must exceed; fp32 1e-4 at full
+     width and 2 layers, across hymba's ring wrap, which each faulted
+     control must break: the state lost, the state rounded through bf16,
+     hymba's ring out of phase), prefill and decode times, peak memory and a
+     traced decode step; each scan's time at its prefill and decode shapes
+     beside its bound and its plain version; and flash and flash-decode at
+     hymba's shapes beside theirs;
   6. train full-width qwen3-1.7b through ``repro_torch.launch.train`` (bf16
      weights, fp32 master, ``--mesh 1x4 --partition auto --batch 8 --seq
      1024 --steps 3``) with the counts set to 0 just before and read just
@@ -149,8 +172,14 @@ def flash_cases():
     """(label, B, Sq, H, KH, Dh, Dv, causal, window, dtype, layout)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
+    hy = _hybrid_attn()
     cases = [("serving", BATCH, PROMPT, 16, 8, 128, 128, True, None, bf16, "bshd"),
-             ("serving-f32", BATCH, PROMPT, 16, 8, 128, 128, True, None, f32, "bshd")]
+             ("serving-f32", BATCH, PROMPT, 16, 8, 128, 128, True, None, f32, "bshd"),
+             # hymba-1.5b's prefill: a GQA group of 5, d_head 64, its window cutting
+             ("hymba", BATCH, HYBRID_PROMPT, hy["h"], hy["kh"], hy["d"], hy["d"], True,
+              hy["window"], bf16, "bshd"),
+             ("hymba-f32", BATCH, HYBRID_PROMPT, hy["h"], hy["kh"], hy["d"], hy["d"], True,
+              hy["window"], f32, "bshd")]
     for dtype in (f32, bf16):       # the sweep of tests/test_kernels.py
         for s, h, kh, d in [(128, 4, 4, 32), (256, 8, 2, 16), (192, 4, 1, 64),
                             (128, 2, 2, 48)]:
@@ -169,6 +198,14 @@ def flash_cases():
     return cases
 
 
+def _hybrid_attn():
+    """hymba-1.5b's attention shapes: heads, kv heads, d_head and window."""
+    from repro_torch.models.config import get_config
+    cfg = get_config(HYBRID_ARCH)
+    return {"h": cfg.n_heads, "kh": cfg.n_kv_heads, "d": cfg.d_head,
+            "window": cfg.sliding_window}
+
+
 def _flash_inputs(b, s, h, kh, dh, dv, dtype, layout, gen):
     q = _rand((b, s, h, dh), dtype, gen)
     k = _rand((b, s, kh, dh), dtype, gen)
@@ -183,10 +220,16 @@ def decode_cases():
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     s_srv = PROMPT + GEN
+    hy = _hybrid_attn()
+    w, h, kh, d = hy["window"], hy["h"], hy["kh"], hy["d"]
     cases = [("serving", BATCH, s_srv, 16, 8, 128, 128, [s_srv, s_srv - 31, 1, 517][:BATCH], bf16,
               "dense"),
              ("serving-f32", BATCH, s_srv, 16, 8, 128, 128, [s_srv, 700, 1, 2][:BATCH], f32,
-              "dense")]
+              "dense"),
+             # hymba-1.5b's decode over its full ring of `window` slots, group 5
+             ("hymba", BATCH, w, h, kh, d, d, w, bf16, "dense"),
+             ("hymba-partial", BATCH, w, h, kh, d, d, [w, w - 31, 1, 517][:BATCH], bf16, "dense"),
+             ("hymba-f32", BATCH, w, h, kh, d, d, [w, 700, 1, 2][:BATCH], f32, "dense")]
     for dtype in (f32, bf16):       # the sweep of tests/test_kernels.py
         for s, h, kh, d in [(512, 8, 2, 32), (1024, 4, 4, 64), (384, 8, 1, 16)]:
             cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}", 2, s, h, kh, d, d, [s, s // 3],
@@ -222,6 +265,7 @@ def phase_kernels():
         want = ref.flash_attention_ref(q, k, v, causal=causal, sliding_window=window)
         errs[("flash_attention", label)] = _compare(f"flash_attention[{label}]", got, want,
                                                     dtype)
+        del q, k, v, got, want
     for label, b, s, h, kh, dh, dv, nv, dtype, layout in decode_cases():
         q, k, v = _decode_inputs(b, s, h, kh, dh, dv, dtype, layout, gen)
         n_valid = nv if isinstance(nv, int) else torch.tensor(nv, dtype=torch.int32,
@@ -230,13 +274,28 @@ def phase_kernels():
         want = ref.decode_attention_ref(q, k, v, n_valid)
         errs[("decode_attention", label)] = _compare(f"decode_attention[{label}]", got, want,
                                                      dtype)
+    torch.cuda.empty_cache()
     worst = {}
     for (name, label), e in errs.items():
         worst[name] = max(worst.get(name, 0.0), e)
     print("kernels vs plain: " + ", ".join(
         f"{name} {len([1 for n, _ in errs if n == name])} cases, serving err "
-        f"{errs[(name, 'serving')]:.3e}, worst {worst[name]:.3e}" for name in worst))
-    return {name: errs[(name, "serving")] for name in worst}
+        f"{errs[(name, 'serving')]:.3e}, hymba err {errs[(name, 'hymba')]:.3e}, worst "
+        f"{worst[name]:.3e}" for name in worst))
+    return _err_summary(errs, "serving", extra=("hymba",))
+
+
+def _err_summary(errs, main, extra=()):
+    """{name: worst max abs err over every case, "name@main": the error at
+    the main path's shape (and "name@label" for each ``extra`` label)}."""
+    out = {}
+    for (name, label), e in errs.items():
+        out[name] = max(out.get(name, 0.0), e)
+        if label == main:
+            out[f"{name}@main"] = e
+        if label in extra:
+            out[f"{name}@{label}"] = e
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +428,7 @@ def phase_train_kernels():
         worst = max(e for (k, _), e in errs.items() if k == name)
         print(f"kernels vs plain: {name} {n} cases, training err "
               f"{errs[(name, 'training')]:.3e}, worst {worst:.3e}")
-    return {name: errs[(name, "training")] for name in ("flash_attention_bwd", "fused_xent")}
+    return _err_summary(errs, "training")
 
 
 # ---------------------------------------------------------------------------
@@ -865,7 +924,515 @@ def phase_dequant_kernel():
     torch.cuda.empty_cache()
     print(f"kernels vs plain: dequant_rows {n} cases (int8 and int4, fp32 and bf16 out), "
           "all bit-exact (atol 0)")
-    return {"dequant_rows": 0.0}
+    return {"dequant_rows": 0.0, "dequant_rows@main": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, the scan kernels: rwkv_scan and ssm_scan
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+RWKV_ARCH, RWKV_PROMPT = "rwkv6-7b", 1024
+HYBRID_ARCH, HYBRID_PROMPT = "hymba-1.5b", 1536   # longer than its window of 1024
+
+
+def _scan_compare(name, got, want, dtype) -> float:
+    """|got - want| <= tol * |want| + tol * max|want| elementwise, tol 1e-4
+    (fp32) or 2e-2 (bf16). Returns the max abs error."""
+    import torch
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype_name(dtype)]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = tol * w.abs() + tol * w.abs().max()
+    worst = err.max().item() if err.numel() else 0.0
+    check(got.shape == want.shape and bool((err <= bound).all()),
+          f"{name}: max abs err {worst:.3e} outside {tol} * (|want| + max|want|)")
+    return worst
+
+
+def _misaligned(t):
+    """The same values in a contiguous tensor that starts 4 bytes past a
+    16-byte boundary: the kernels' scalar staging path."""
+    import torch
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = flat[4 // t.element_size():][:t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def rwkv_cases():
+    """(label, B, S, H, N, dtype, decays, s0, layout): the prefill and decode
+    shapes of rwkv6-7b (fp32, as the model calls it, and bf16), and a ragged
+    sweep: N in {7, 16, 20, 64}, S not a multiple of the 32-step chunk, the
+    model's decays (w in (0.99, 1)) and sigmoid ones, zero and random initial
+    states, a misaligned layout."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    from repro_torch.models.config import get_config
+    cfg = get_config(RWKV_ARCH)
+    h = cfg.d_model // 64
+    cases = [("prefill", BATCH, RWKV_PROMPT, h, 64, f32, "model", "zeros", "dense"),
+             ("prefill-bf16", BATCH, RWKV_PROMPT, h, 64, bf16, "model", "zeros", "dense"),
+             ("decode", BATCH, 1, h, 64, f32, "model", "random", "dense"),
+             ("decode-bf16", BATCH, 1, h, 64, bf16, "model", "random", "dense")]
+    for dtype in (f32, bf16):
+        for s, hh, n, decays in [(77, 3, 16, "sigmoid"), (200, 2, 64, "sigmoid"),
+                                 (45, 5, 16, "model"), (33, 2, 20, "sigmoid"),
+                                 (70, 3, 7, "model")]:
+            cases.append((f"sweep-s{s}-h{hh}-n{n}-{decays}-{dtype_name(dtype)}", 2, s, hh, n,
+                          dtype, decays, "random", "dense"))
+        cases.append((f"misaligned-{dtype_name(dtype)}", 2, 50, 3, 64, dtype, "sigmoid",
+                      "random", "misaligned"))
+    return cases
+
+
+def _rwkv_inputs(b, s, h, n, dtype, decays, s0_kind, layout, gen):
+    import torch
+    r, k, v = (_rand((b, s, h, n), dtype, gen) for _ in range(3))
+    z = torch.randn((b, s, h, n), generator=gen, device=DEVICE)
+    w = (torch.exp(-torch.exp(-6.0 + 0.6 * z)) if decays == "model" else torch.sigmoid(z))
+    w = w.to(dtype)
+    u = torch.randn((h, n), generator=gen, device=DEVICE)
+    s0 = (torch.zeros((b, h, n, n), device=DEVICE) if s0_kind == "zeros"
+          else torch.randn((b, h, n, n), generator=gen, device=DEVICE))
+    if layout == "misaligned":
+        r, k, v, w = (_misaligned(t) for t in (r, k, v, w))
+    return r, k, v, w, u, s0
+
+
+def ssm_cases():
+    """(label, B, S, Di, N, dtype, out dtype, h0, layout): the prefill and
+    decode shapes of hymba-1.5b (bf16 in and fp32 y, as the model calls it;
+    and fp32), and a ragged sweep: N in {7, 16, 64}, S not a multiple of the
+    64-step chunk, d_inner 3200 (not a multiple of the Pallas block_d of
+    256) and small ragged ones, y in x's type, a misaligned layout."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    from repro_torch.models.config import get_config
+    cfg = get_config(HYBRID_ARCH)
+    di, n = cfg.d_inner, cfg.ssm_state
+    cases = [("prefill", BATCH, HYBRID_PROMPT, di, n, bf16, f32, "zeros", "dense"),
+             ("prefill-f32", BATCH, HYBRID_PROMPT, di, n, f32, f32, "zeros", "dense"),
+             ("decode", BATCH, 1, di, n, bf16, f32, "random", "dense"),
+             ("decode-f32", BATCH, 1, di, n, f32, f32, "random", "dense")]
+    for dtype in (f32, bf16):
+        for s, d_in, nn in [(77, di, 64), (130, 100, 16), (65, 33, 7), (200, 3200, 16)]:
+            cases.append((f"sweep-s{s}-di{d_in}-n{nn}-{dtype_name(dtype)}", 2, s, d_in, nn,
+                          dtype, dtype, "random", "dense"))
+        cases.append((f"misaligned-{dtype_name(dtype)}", 2, 70, 96, 16, dtype, f32, "random",
+                      "misaligned"))
+    return cases
+
+
+def _ssm_inputs(b, s, di, n, dtype, h0_kind, layout, gen):
+    import torch
+    import torch.nn.functional as F
+    x = _rand((b, s, di), dtype, gen)
+    dt = F.softplus(torch.randn((b, s, 1), generator=gen, device=DEVICE)).to(dtype)
+    bm, cm = (_rand((b, s, n), dtype, gen) for _ in range(2))
+    a = -torch.exp(0.5 * torch.randn((di, n), generator=gen, device=DEVICE))
+    h0 = (torch.zeros((b, di, n), device=DEVICE) if h0_kind == "zeros"
+          else torch.randn((b, di, n), generator=gen, device=DEVICE))
+    if layout == "misaligned":
+        x, dt, bm, cm = (_misaligned(t) for t in (x, dt, bm, cm))
+    return x, dt, bm, cm, a, h0
+
+
+def phase_scan_kernels():
+    """``rwkv_scan`` and ``ssm_scan`` against their plain versions: y and the
+    final state, at fp32 1e-4 and bf16 2e-2 (relative, plus the same share
+    of the largest value)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    errs = {}
+    for label, b, s, h, n, dtype, decays, s0k, layout in rwkv_cases():
+        args = _rwkv_inputs(b, s, h, n, dtype, decays, s0k, layout, gen)
+        y, s_t = rwkv_scan(*args)
+        ry, rs = ref.rwkv_scan_ref(*args)
+        check(y.dtype == dtype and s_t.dtype == torch.float32, f"rwkv_scan[{label}]: dtypes")
+        errs[("rwkv_scan", label)] = max(_scan_compare(f"rwkv_scan[{label}] y", y, ry, dtype),
+                                         _scan_compare(f"rwkv_scan[{label}] S_T", s_t, rs,
+                                                       dtype))
+        del args, y, s_t, ry, rs
+    for label, b, s, di, n, dtype, out_dtype, h0k, layout in ssm_cases():
+        args = _ssm_inputs(b, s, di, n, dtype, h0k, layout, gen)
+        y, h_t = ssm_scan(*args, out_dtype=out_dtype)
+        ry, rh = ref.ssm_scan_ref(*args, out_dtype=out_dtype)
+        check(y.dtype == out_dtype and h_t.dtype == torch.float32, f"ssm_scan[{label}]: dtypes")
+        errs[("ssm_scan", label)] = max(_scan_compare(f"ssm_scan[{label}] y", y, ry, dtype),
+                                        _scan_compare(f"ssm_scan[{label}] h_T", h_t, rh, dtype))
+        del args, y, h_t, ry, rh
+    torch.cuda.empty_cache()
+    for name in ("rwkv_scan", "ssm_scan"):
+        mine = {label: e for (k, label), e in errs.items() if k == name}
+        print(f"kernels vs plain: {name} {len(mine)} cases, prefill err {mine['prefill']:.3e}, "
+              f"decode err {mine['decode']:.3e}, worst {max(mine.values()):.3e}")
+    return _err_summary(errs, "prefill", extra=("decode",))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: serving the recurrent families, rwkv6-7b and hymba-1.5b
+# ---------------------------------------------------------------------------
+
+def _serve_counters():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "rwkv_scan": rwkv_scan, "ssm_scan": ssm_scan}
+
+
+# bf16 decode-vs-prefill bars on the relative norm of the logits, at full
+# depth, set from readings on the H100: above the sound runs (rwkv6-7b
+# 1.90e-2 and 1.93e-2; hymba-1.5b 2.85e-2 to 4.34e-2, whose bf16 prefill lies
+# ~0.2 from its fp32 one) and below a lost recurrent state (1.02 and 0.98).
+# Smaller faults drown in hymba's bf16 noise (its ring one slot out of phase
+# read 7.2e-2, its state rounded through bf16 4.0e-2), so the bf16 bar is
+# gated on the lost state only and every fault is held by the fp32 check.
+BF16_DECODE_BAR = {"rwkv6": 3e-2, "hybrid": 6e-2}
+BF16_GATED_FAULTS = ("state_zeroed",)
+
+
+def _decode_faults(cfg):
+    """Decode-side faults, each injected into a fresh prefill cache:
+    the recurrent state rounded through bf16 (what a bf16 state cache would
+    do), the recurrent state lost, and (hybrid) the attention ring one slot
+    out of phase."""
+    faults = ["state_bf16", "state_zeroed"]
+    return faults + ["ring_shifted"] if cfg.block_kind == "hybrid" else faults
+
+
+def _inject(fault, cache, cfg):
+    import torch
+    state = cache["rwkv"]["time_s"] if cfg.block_kind == "rwkv6" else cache["ssm_h"]
+    with torch.inference_mode():   # the serving steps' caches are inference tensors
+        if fault == "state_bf16":
+            state.copy_(state.to(torch.bfloat16).float())
+        elif fault == "state_zeroed":
+            state.zero_()
+        elif fault == "ring_shifted":
+            for name in ("k", "v"):
+                cache[name].copy_(torch.roll(cache[name], 1, dims=2))
+
+
+def phase_serve_recurrent(arch, prompt):
+    """Serve full-width ``arch`` (bf16, random weights from a seeded
+    ``torch.Generator``; batch 4, ``prompt`` tokens, 32 greedy tokens)
+    through ``serve.main`` with the counts set to 0 just before and read just
+    after; check the counts, finite logits, and that a decode step's logits
+    match a prefill of the prefix one token longer (bf16 on the relative
+    norm; fp32 elementwise at full width and 2 layers, across hymba's ring
+    wrap). Then time prefill and decode, trace four decode steps, and time
+    each scan at the prefill and decode shapes beside its bound and its plain
+    version."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+
+    cfg = get_config(arch)
+    counters = _serve_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    served = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len", str(prompt),
+                         "--gen", str(GEN), "--device", DEVICE])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_run = cfg.n_layers * (GEN + 1)   # one launch per layer in prefill and in each step
+    if cfg.block_kind == "rwkv6":
+        want = {"flash_attention": 0, "decode_attention": 0, "rwkv_scan": per_run,
+                "ssm_scan": 0}
+    else:
+        want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * GEN,
+                "rwkv_scan": 0, "ssm_scan": per_run}
+    print(f"{arch} serve launches: {launches} (expected {want}), peak memory "
+          f"{peak / 1e9:.2f} GB")
+    check(launches == want, f"{arch} serve launches {launches} != {want}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in served.logits),
+          f"{arch}: non-finite logits")
+    check(tuple(served.tokens.shape) == (BATCH, GEN), f"tokens {tuple(served.tokens.shape)}")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # bf16: the decode step against the prefill one token longer, on the
+    # relative norm, at a fixed bar per family (BF16_DECODE_BAR); beside it
+    # the bf16 prefill's distance from an fp32 prefill of the same weights
+    # (the model's bf16 noise, not a gate), and faulted controls: the same
+    # decode step from a cache with one decode-side fault each.
+    prefix = torch.cat([served.prompts, served.tokens[:, :1]], dim=1)
+    got = served.logits[1]
+    want_logits, _ = build_prefill_step(cfg, prompt + 1)(served.params, {"tokens": prefix})
+    truth, _ = build_prefill_step(cfg, prompt + 1)(_cast(served.params, torch.float32),
+                                                   {"tokens": prefix})
+    torch.cuda.empty_cache()
+    bf16_rel, floor = rel(got, want_logits), rel(want_logits, truth)
+    bar = BF16_DECODE_BAR[cfg.block_kind]
+    print(f"{arch} decode vs prefill, bf16, {cfg.n_layers} layers: relative error "
+          f"{bf16_rel:.3e} (bar {bar:.3e}; max abs {(got - want_logits).abs().max().item():.3e}, "
+          f"logits max abs {want_logits.abs().max().item():.2f}); vs fp32: decode "
+          f"{rel(got, truth):.3e}, prefill {floor:.3e}; argmax agrees with fp32: decode "
+          f"{(got.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}, prefill "
+          f"{(want_logits.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}")
+    check(bf16_rel <= bar, f"{arch}: bf16 decode logits disagree with the prefill of the "
+                           "same prefix")
+    del truth
+    controls = {}
+    for fault in _decode_faults(cfg):
+        _, cache = build_prefill_step(cfg, prompt + GEN)(served.params,
+                                                         {"tokens": served.prompts})
+        _inject(fault, cache, cfg)
+        faulted, _ = build_decode_step(cfg)(served.params, cache, served.tokens[:, 0])
+        controls[fault] = rel(faulted, want_logits)
+        del cache, faulted
+    print(f"{arch} faulted controls, bf16 decode vs prefill (bar {bar:.3e}): "
+          + json.dumps(controls))
+    for fault, err in controls.items():
+        if fault in BF16_GATED_FAULTS:
+            check(err > bar, f"{arch}: the bf16 bar {bar:.3e} does not catch the fault "
+                             f"{fault!r} ({err:.3e})")
+    torch.cuda.empty_cache()
+
+    # fp32, full width, 2 layers: the decode step against the prefill one
+    # token longer, elementwise (hymba: a prompt past its window, so the
+    # prefill rolls the ring and the decode step writes into a wrapped slot)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    p32 = T.init_params(cfg2, gen, dtype=torch.float32, device=DEVICE)
+    p2 = prompt if cfg.block_kind == "hybrid" else 256
+    toks = torch.randint(0, cfg2.vocab_size, (2, p2 + 1), generator=gen, device=DEVICE)
+    _, cache = build_prefill_step(cfg2, p2 + 4)(p32, {"tokens": toks[:, :p2]})
+    step_logits, _ = build_decode_step(cfg2)(p32, cache, toks[:, p2])
+    want32, _ = build_prefill_step(cfg2, p2 + 1)(p32, {"tokens": toks})
+    f32_err = (step_logits - want32).abs().max().item()
+    check(torch.allclose(step_logits, want32, rtol=1e-4, atol=1e-4),
+          f"{arch}: fp32 decode logits disagree with the prefill of the same prefix")
+    f32_controls = {}
+    for fault in _decode_faults(cfg2):   # each must break the 1e-4 bar
+        _, fcache = build_prefill_step(cfg2, p2 + 4)(p32, {"tokens": toks[:, :p2]})
+        _inject(fault, fcache, cfg2)
+        faulted, _ = build_decode_step(cfg2)(p32, fcache, toks[:, p2])
+        f32_controls[fault] = (faulted - want32).abs().max().item()
+        check(not torch.allclose(faulted, want32, rtol=1e-4, atol=1e-4),
+              f"{arch}: the fp32 bar does not catch the fault {fault!r}")
+        del fcache, faulted
+    print(f"{arch} decode vs prefill, fp32, 2 layers, prompt {p2}: max abs err {f32_err:.3e}; "
+          f"faulted controls {json.dumps(f32_controls)}")
+    del p32, cache
+
+    # serving steps, warm, timed on the host around a synchronise
+    prefill = build_prefill_step(cfg, prompt + GEN)
+    decode = build_decode_step(cfg)
+    batch = {"tokens": served.prompts}
+    t_pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(served.params, batch)
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t0)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN):
+        logits, cache = decode(served.params, cache, tok)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    logits, cache = prefill(served.params, batch)
+    state = {"tok": logits.argmax(-1), "cache": cache}
+
+    def step():
+        lg, state["cache"] = decode(served.params, state["cache"], state["tok"])
+        state["tok"] = lg.argmax(-1)
+
+    traced = _trace(step, 4)
+    timings = {"serve_run": {"prefill_ms": served.t_prefill * 1e3,
+                             "decode_ms_per_token": served.t_decode * 1e3 / GEN},
+               "warm": {"prefill_ms": sorted(t_pre)[1] * 1e3,
+                        "prefill_tok_per_s": BATCH * prompt / sorted(t_pre)[1],
+                        "decode_ms_per_token": t_dec * 1e3 / GEN,
+                        "decode_tok_per_s": BATCH * GEN / t_dec},
+               "traced_decode_step": traced, "peak_memory_gb": peak / 1e9,
+               "decode_vs_prefill": {"bf16_rel": bf16_rel, "bf16_bar": bar,
+                                     "bf16_prefill_vs_fp32_rel": floor,
+                                     "faulted_controls": controls,
+                                     "fp32_2_layers_max_abs": f32_err,
+                                     "fp32_faulted_controls": f32_controls}}
+    print(f"{arch} timings " + json.dumps(timings))
+    del served, state, cache
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def _traced_per_call(timings, kernel, arch):
+    """The kernel's device ms per call in the serving run's traced decode
+    steps (one call per layer and step), or "not measured"."""
+    from repro_torch.models.config import get_config
+    traced = timings["traced_decode_step"]
+    if not isinstance(traced, dict) or f"{kernel}_ms" not in traced:
+        return "not measured: the trace holds no such kernel"
+    return traced[f"{kernel}_ms"] / get_config(arch).n_layers
+
+
+def _scan_row(name, source, replaces, launches, errs, ms, plain_ms, nbytes, flops, shapes):
+    row = _row(name, source, replaces, launches, errs, ms["prefill"], plain_ms["prefill"], None,
+               nbytes["prefill"], flops["prefill"], "float32")
+    dec = _row(name, source, replaces, launches, errs, ms["decode"], plain_ms["decode"], None,
+               nbytes["decode"], flops["decode"], "float32")
+    row.update({"shape": shapes["prefill"], "decode_shape": shapes["decode"],
+                "decode_ms": ms["decode"], "decode_plain_ms": plain_ms["decode"],
+                "decode_bound_ms": dec["bound_ms"], "decode_bound_by": dec["bound_by"],
+                "decode_shape_err": errs[f"{name}@decode"],
+                "library_note": "none: no single PyTorch call computes this scan"})
+    return row
+
+
+def phase_scan_timings(errs, launches, recurrent):
+    """Each scan at the shapes the main path gives it (prefill and one decode
+    step), cold inputs, beside its bound and its plain version. Bound: the
+    inputs read once and the outputs written once at the HBM rate, against
+    the operations at the fp32 rate (the math is fp32; each exponential
+    counted as one operation). At the decode shape the CUDA events time
+    back-to-back calls that the host's launch path paces, so the row also
+    gives the kernel's device time per call inside the traced decode steps
+    of the serving run."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models.config import get_config
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+
+    h, n = get_config(RWKV_ARCH).d_model // 64, 64
+    ms, plain_ms, nbytes, flops, shapes = {}, {}, {}, {}, {}
+    for kind, s in (("prefill", RWKV_PROMPT), ("decode", 1)):
+        sets = [_rwkv_inputs(BATCH, s, h, n, f32, "model", "random", "dense", gen)
+                for _ in range(4)]
+        ms[kind] = _time_ms(rwkv_scan, sets, 10 if s > 1 else 50)
+        plain_ms[kind] = _time_ms(ref.rwkv_scan_ref, sets[:1], 2 if s > 1 else 10)
+        elems = BATCH * s * h * n
+        nbytes[kind] = 5 * elems * 4 + h * n * 4 + 2 * BATCH * h * n * n * 4
+        # per (b, t, h): y is N^2 multiply-adds of r_i S[i, j] plus 3 N for
+        # v_j sum_i r_i u_i k_i; the update a multiply and a multiply-add per
+        # state entry: 5 N^2 + 3 N flops
+        flops[kind] = BATCH * s * h * (5 * n * n + 3 * n)
+        shapes[kind] = f"B={BATCH}, S={s}, H={h}, N={n}, fp32"
+        del sets
+    rows.append(_scan_row("rwkv_scan", "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                          "src/repro/kernels/rwkv_scan.py:52", launches, errs, ms, plain_ms,
+                          nbytes, flops, shapes))
+    # the scalar staging path (misaligned inputs) beside the 16-byte one
+    sets = [_rwkv_inputs(BATCH, RWKV_PROMPT, h, n, f32, "model", "random", "misaligned", gen)
+            for _ in range(4)]
+    rows[-1]["prefill_scalar_staging_ms"] = _time_ms(rwkv_scan, sets, 10)
+    del sets
+    rows[-1]["decode_device_ms_traced"] = _traced_per_call(recurrent[RWKV_ARCH], "rwkv_scan",
+                                                           RWKV_ARCH)
+
+    cfg = get_config(HYBRID_ARCH)
+    di, n = cfg.d_inner, cfg.ssm_state
+    ms, plain_ms, nbytes, flops, shapes = {}, {}, {}, {}, {}
+    for kind, s in (("prefill", HYBRID_PROMPT), ("decode", 1)):
+        sets = [_ssm_inputs(BATCH, s, di, n, bf16, "random", "dense", gen) for _ in range(4)]
+        ms[kind] = _time_ms(lambda *a: ssm_scan(*a, out_dtype=f32), sets, 10 if s > 1 else 50)
+        plain_ms[kind] = _time_ms(lambda *a: ref.ssm_scan_ref(*a, out_dtype=f32), sets[:1],
+                                  2 if s > 1 else 10)
+        # x, dt, B, C in bf16 and y in fp32; A, h0 and h_T in fp32
+        nbytes[kind] = (BATCH * s * (di + 1 + 2 * n) * 2 + BATCH * s * di * 4 + di * n * 4
+                        + 2 * BATCH * di * n * 4)
+        # per (b, t, d, n): dt*a, exp, *h, dx*B, +, *C, +; per (b, t, d): dt*x
+        flops[kind] = BATCH * s * di * (7 * n + 1)
+        shapes[kind] = f"B={BATCH}, S={s}, Di={di}, N={n}, bf16 in, fp32 y"
+        del sets
+    rows.append(_scan_row("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                          "src/repro/kernels/ssm_scan.py:50", launches, errs, ms, plain_ms,
+                          nbytes, flops, shapes))
+    rows[-1]["decode_device_ms_traced"] = _traced_per_call(recurrent[HYBRID_ARCH], "ssm_scan",
+                                                           HYBRID_ARCH)
+    torch.cuda.empty_cache()
+    print("scan kernel timings " + json.dumps(rows))
+    return rows
+
+
+def phase_hybrid_attention_timings(rows, errs):
+    """Flash attention at hymba-1.5b's prefill shape (group 5, d_head 64,
+    window 1024, bf16) and flash-decode over its full ring, beside their
+    bounds, their plain versions and ``scaled_dot_product_attention``: extra
+    ``hymba_*`` keys on the two serving kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    hy = _hybrid_attn()
+    h, kh, d, w = hy["h"], hy["kh"], hy["d"], hy["window"]
+    s = HYBRID_PROMPT
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    bf16, elem = torch.bfloat16, 2
+    gqa = _sdpa_gqa()
+    kw = {"enable_gqa": True} if gqa else {}
+    by_name = {row["name"]: row for row in rows}
+
+    def widen(k, v):
+        return (k, v) if gqa else (k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
+
+    def record(name, shape, ms, plain_ms, lib_ms, nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        by_name[name].update({
+            "hymba_shape": shape, "hymba_ms": ms, "hymba_plain_ms": plain_ms,
+            "hymba_library_ms": lib_ms, "hymba_bound_ms": max(t_bytes, t_ops),
+            "hymba_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "hymba_err": errs[f"{name}@hymba"]})
+
+    # prefill: each query sees min(i + 1, window) keys
+    sets = [_flash_inputs(BATCH, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+    ms = _time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True, sliding_window=w),
+                  sets, 10)
+    plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True,
+                                                                sliding_window=w), sets[:2], 3)
+    pos = torch.arange(s, device=DEVICE)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    lib_sets = []
+    for q, k, v in sets:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_sets.append((q, *widen(k, v)))
+    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                     **kw), lib_sets, 10)
+    pairs = sum(min(i + 1, w) for i in range(s))
+    record("flash_attention", f"B={BATCH}, S={s}, H={h}, KH={kh}, Dh={d}, window {w}, bf16",
+           ms, plain_ms, lib_ms, (2 * BATCH * s * h * d + 2 * BATCH * s * kh * d) * elem,
+           2 * BATCH * h * pairs * (d + d))
+    del sets, lib_sets
+
+    # decode: one token over the full ring of `window` slots
+    nv = torch.full((BATCH,), w, dtype=torch.int32, device=DEVICE)
+    sets = [_decode_inputs(BATCH, w, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
+    ms = _time_ms(lambda q, k, v: decode_attention(q, k, v, nv), sets, 20)
+    plain_ms = _time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, nv), sets, 5)
+    lib_sets = [(q[:, :, None, :], *widen(k.transpose(1, 2).contiguous(),
+                                          v.transpose(1, 2).contiguous()))
+                for q, k, v in sets]
+    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw), lib_sets, 20)
+    record("decode_attention", f"B={BATCH}, ring {w}, H={h}, KH={kh}, Dh={d}, n_valid {w}, bf16",
+           ms, plain_ms, lib_ms, (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
+           2 * BATCH * h * w * (d + d))
+    del sets, lib_sets
+    torch.cuda.empty_cache()
+    print("hymba attention timings " + json.dumps(
+        {name: {k: v for k, v in by_name[name].items() if k.startswith("hymba_")}
+         for name in ("flash_attention", "decode_attention")}))
 
 
 # ---------------------------------------------------------------------------
@@ -1108,6 +1675,9 @@ def _trace(fn, calls):
     dequant = sum(us for name, us in by_name.items() if "dequant_kernel" in name)
     if dequant:
         out["dequant_ms"] = dequant / 1e3 / calls
+    scans = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name)
+             for k in ("rwkv_scan", "ssm_scan")}
+    out.update({f"{k}_ms": us / 1e3 / calls for k, us in scans.items() if us})
     if ranges:
         out["slot_kinds_ms"] = {k: us / 1e3 / calls for k, us in sorted(by_kind.items())}
     return out
@@ -1120,7 +1690,7 @@ def _row(name, source, replaces, launches, errs, ms, plain_ms, lib_ms, nbytes, f
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "main_shape_err": errs[f"{name}@main"]}
 
 
 def main() -> int:
@@ -1141,9 +1711,17 @@ def main() -> int:
     errs = phase_kernels()
     errs.update(phase_train_kernels())
     errs.update(phase_dequant_kernel())
+    errs.update(phase_scan_kernels())
     served, launches = phase_serve()
     rows = phase_timings(served, errs, launches)
     del served
+    recurrent = {}
+    for arch, prompt in ((RWKV_ARCH, RWKV_PROMPT), (HYBRID_ARCH, HYBRID_PROMPT)):
+        run_launches, recurrent[arch] = phase_serve_recurrent(arch, prompt)
+        for name, n in run_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    scan_rows = phase_scan_timings(errs, launches, recurrent)
+    phase_hybrid_attention_timings(rows, errs)
     out, train_launches, peak = phase_train()
     losses, times, traced = phase_repeated_batch(out)
     ring = phase_ring_vs_single()
@@ -1159,6 +1737,7 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     rows += phase_train_timings(errs, launches)
     rows.append(phase_dequant_timings(errs, launches))
+    rows += scan_rows
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = sorted(out["step_s"][1:] + times)
     timings = {"train_run_step_ms": [x * 1e3 for x in out["step_s"]],

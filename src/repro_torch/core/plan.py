@@ -576,9 +576,11 @@ def default_layer_costs(cfg, *, head_stage: bool = True,
             "LoRA cost accounting is not ported yet (ROADMAP.md, Queue 1, item 8)")
     from repro_torch.models.transformer import init_layer
 
+    def count(node):    # leaves nest two deep (attn.w_q) or three (rwkv.time.w_r)
+        return sum(map(count, node.values())) if isinstance(node, dict) else node.numel()
+
     # one layer on the meta device: shapes only, nothing allocated
-    layer = init_layer(None, cfg, device="meta")
-    layer_params = sum(leaf.numel() for part in layer.values() for leaf in part.values())
+    layer_params = count(init_layer(None, cfg, device="meta"))
     scale = 1.0 / max(layer_params, 1)
     upload = quant_upload_bytes(layer_params, pool_dtype)
     out = [LayerCost(1.0, grad_ratio, weight_bytes=2 * layer_params,

@@ -127,3 +127,37 @@ def decode_attention_ref(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return o.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def rwkv_scan_ref(r, k, v, w, u, s0):
+    """The RWKV6 recurrence, one step at a time.  r,k,v,w: (B,S,H,N); u:
+    (H,N); s0: (B,H,N,N).
+    y_t = r_t · (diag(u) k_t v_tᵀ + S_{t-1});  S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+    fp32 math and state.  Returns (y (B,S,H,N) in r's dtype, S_T (B,H,N,N)
+    fp32)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf, s = u.float(), s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]              # (B,H,N,N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], uf[..., None] * kv + s))
+        s = wf[:, t, :, :, None] * s + kv
+    y = torch.stack(ys, dim=1) if ys else rf.new_zeros(r.shape)
+    return y.to(r.dtype), s
+
+
+def ssm_scan_ref(x, dt, bmat, cmat, a, h0, *, out_dtype=None):
+    """The Mamba selective scan, one step at a time.  x: (B,S,Di); dt:
+    (B,S,1); bmat,cmat: (B,S,N); a: (Di,N); h0: (B,Di,N).
+    h_t = exp(dt_t a) ⊙ h_{t-1} + (dt_t x_t) ⊗ B_t;  y_t = h_t · C_t
+    fp32 math and state.  Returns (y (B,S,Di) in ``out_dtype``, x's dtype by
+    default, h_T (B,Di,N) fp32)."""
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, bmat, cmat))
+    af, h = a.float(), h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        decay = torch.exp(dtf[:, t, :, None] * af)                      # (B,Di,N)
+        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+    return y.to(out_dtype or x.dtype), h

@@ -1,0 +1,79 @@
+"""The Mamba selective scan on the card: the wrapper of ``csrc/ssm_scan.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py`` (``ssm_scan`` ->
+``_ssm_kernel``). The kernel's note says what bounds it on an H100 and how its
+design answers that. Unlike the Pallas kernel, it takes any ``d_inner`` (the
+last channel block is masked) and any sequence length, and it can write y in
+another type than x's (``out_dtype``): the model keeps y in fp32, as the
+reference's jnp scan does. The plain PyTorch version of the same function is
+``ref.ssm_scan_ref``; ``ops.ssm_scan`` picks between the two by the tensors'
+device. Forward only: the reference has no backward kernel either.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+N_MAX = 64
+
+
+@functools.cache
+def _entry():
+    fn = _build.load("ssm_scan").ssm_scan
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssm_scan(x, dt, bmat, cmat, a, h0, *, out_dtype=None):
+    """x: (B,S,Di); dt: (B,S,1); bmat, cmat: (B,S,N), one dtype (float32 or
+    bfloat16); a: (Di,N) fp32; h0: (B,Di,N) fp32 -> (y (B,S,Di) in
+    ``out_dtype``, x's dtype by default, h_T (B,Di,N) fp32).
+
+    Launches the CUDA kernel on PyTorch's current stream; raises for anything
+    the kernel does not take (CPU tensors included)."""
+    _build.refuse_graph("ssm_scan", x, dt, bmat, cmat, a, h0)
+    _build.check_tensors("ssm_scan", x, dt, bmat, cmat)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"ssm_scan: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"ssm_scan: x must be (B,S,Di), got {tuple(x.shape)}")
+    b, s, di = x.shape
+    n = bmat.shape[-1] if bmat.ndim == 3 else -1
+    if (tuple(dt.shape) != (b, s, 1) or tuple(bmat.shape) != (b, s, n)
+            or tuple(cmat.shape) != (b, s, n)):
+        raise ValueError(f"ssm_scan: shapes do not agree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, B {tuple(bmat.shape)}, C {tuple(cmat.shape)}")
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"ssm_scan: state size {n} outside 1..{N_MAX}")
+    if b > 65535:
+        raise ValueError(f"ssm_scan: batch {b}; the kernel's grid takes at most 65535")
+    for name, t in (("x", x), ("dt", dt), ("B", bmat), ("C", cmat)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssm_scan: {name} must be contiguous")
+    _build.check_dense("ssm_scan", a, torch.float32, (di, n), x.device)
+    _build.check_dense("ssm_scan", h0, torch.float32, (b, di, n), x.device)
+    y = torch.empty((b, s, di), dtype=out_dtype, device=x.device)
+    h_t = torch.empty_like(h0)
+    if b * di == 0:
+        return y, h_t
+    if s == 0:
+        return y, h_t.copy_(h0)
+    with torch.cuda.device(x.device):   # launch on the tensors' card
+        err = _entry()(_build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
+                       x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                       a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, s, di, n,
+                       _build.stream_handle(x.device))
+    if err:
+        raise RuntimeError(f"ssm_scan: kernel launch failed with CUDA error {err}")
+    ssm_scan.launches += 1
+    return y, h_t
+
+
+ssm_scan.launches = 0

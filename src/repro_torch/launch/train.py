@@ -15,8 +15,9 @@ per step from round-major batches; ``--pool-dtype`` streams the pool as int8
 or int4 codes; ``--grad-compress int8`` makes the deposits error-feedback
 int8. What this slice does not run yet is refused by name: a data axis,
 ``gspmd``, ``--async-opt``, ``--elastic``, ``--async-ckpt``, ``--lora-rank``,
-``--schedule searched``, and checkpoints (``--ckpt-dir``, ``--ckpt-every``).
-Runs on the card unless ``--device cpu``.
+``--schedule searched``, checkpoints (``--ckpt-dir``, ``--ckpt-every``) and
+training of the rwkv6 and hybrid families (their scan kernels are forward
+only; ``launch.serve`` serves both). Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -72,7 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refusals(args, n_data: int) -> list[str]:
+    from repro_torch.models.config import get_config
     later = {
+        "training of the rwkv6/hybrid families (the scans' backward kernels)":
+            get_config(args.arch).block_kind in ("rwkv6", "hybrid"),
         "--strategy gspmd": args.strategy != "roundpipe",
         f"a data axis of {n_data} (--mesh)": n_data != 1,
         "--async-opt": args.async_opt,

@@ -1,16 +1,24 @@
-"""Dense decoder of the port: init, forward and loss, and serving with a KV
-cache.
+"""Decoder of the port: init, forward and loss, and serving with a cache.
 
-The PyTorch counterpart of the dense GQA branch of
-``repro/models/transformer.py``. Parameters are plain dicts with the
-reference's leaf names, scales and (in, out) weight layout; the reference's
-stacked layer axis becomes a list of per-layer dicts (``convert`` moves
-weights between the two). Serving keeps a cache dict ``{"len": int, "k",
-"v"}`` whose tensors are (L, B, W, KH, Dh), as in the reference, and which
-``decode_step`` updates in place.
+The PyTorch counterpart of ``repro/models/transformer.py`` for three of its
+block kinds: dense GQA attention, RWKV6 (``block_kind="rwkv6"``) and the
+hybrid of sliding-window attention in parallel with Mamba heads
+(``block_kind="hybrid"``). Parameters are plain dicts with the reference's
+leaf names, scales and (in, out) weight layout; the reference's stacked layer
+axis becomes a list of per-layer dicts (``convert`` moves weights between the
+two). Serving keeps the reference's cache layout, its tensors stacked per
+layer as (L, ...), and ``decode_step`` updates them in place:
 
-MoE, MLA, RWKV6, hybrid and the ``embeds`` front end are later slices of the
-port (ROADMAP.md, Queue 1, item 13) and raise ``NotImplementedError``.
+- dense: ``{"len", "k", "v"}``, k and v (L, B, W, KH, Dh);
+- rwkv6: ``{"len", "rwkv": {"time_x", "time_s", "chan_x"}}``, (L, B, 1, D),
+  (L, B, H, 64, 64) fp32 and (L, B, 1, D);
+- hybrid: ``{"len", "k", "v", "ssm_h", "ssm_conv"}``, the attention ring of
+  the sliding window plus (L, B, Di, N) fp32 and (L, B, CONV_W-1, Di).
+
+MoE, MLA and the ``embeds`` front end are later slices of the port
+(ROADMAP.md, Queue 1, item 13) and raise ``NotImplementedError``; training of
+the rwkv6 and hybrid families is refused by the launcher (their scans have no
+backward kernel yet).
 """
 from __future__ import annotations
 
@@ -24,14 +32,18 @@ from repro_torch.kernels import ops
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, chunked_attention, decode_attention, init_mlp,
                      init_norm, init_normal, mlp)
+from .ssm import (init_mamba, init_rwkv6, mamba_seq, mamba_state_shape, mamba_step,
+                  rwkv6_channel_seq, rwkv6_state_shape, rwkv6_time_seq)
 
 _LATER = "is not ported yet (ROADMAP.md, Queue 1, item 13: non-dense families)"
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.block_kind != "attn":
+def _require_ported(cfg: ModelConfig) -> None:
+    """Raise by name for what the port does not run yet: MoE MLPs, MLA
+    attention and block kinds other than attn, rwkv6 and hybrid."""
+    if cfg.block_kind not in ("attn", "rwkv6", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: block kind {cfg.block_kind!r} {_LATER}")
-    if cfg.attn_kind != "gqa":
+    if cfg.block_kind != "rwkv6" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: attention kind {cfg.attn_kind!r} {_LATER}")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE MLP {_LATER}")
@@ -53,11 +65,20 @@ def _init_attn(generator, cfg: ModelConfig, dtype, device):
 
 
 def init_layer(generator, cfg: ModelConfig, dtype=torch.bfloat16, device="cuda"):
-    _require_dense(cfg)
-    return {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
-            "norm2": init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
-            "attn": _init_attn(generator, cfg, dtype, device),
-            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)}
+    _require_ported(cfg)
+    p: dict = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
+               "norm2": init_norm(cfg.d_model, cfg.norm_kind, dtype, device)}
+    if cfg.block_kind == "rwkv6":
+        p["rwkv"] = init_rwkv6(generator, cfg.d_model, cfg.d_ff, dtype, device)
+        return p
+    p["attn"] = _init_attn(generator, cfg, dtype, device)
+    if cfg.block_kind == "hybrid":
+        p["mamba"] = init_mamba(generator, cfg.d_model, cfg.d_inner, cfg.ssm_state, dtype,
+                                device)
+        p["norm_attn_out"] = init_norm(cfg.d_model, "rmsnorm", dtype, device)
+        p["norm_mamba_out"] = init_norm(cfg.d_model, "rmsnorm", dtype, device)
+    p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16,
@@ -67,7 +88,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat
     ``generator`` must live on ``device``. The numbers differ from the
     reference's ``jax.random`` ones; to compare the two, move the reference's
     weights over with ``convert.params_from_jax``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
     p = {
         "embed": init_normal((cfg.vocab_size, d), 1.0 / math.sqrt(d), generator, dtype, device),
@@ -99,18 +120,36 @@ def _attention_block(x, p, cfg: ModelConfig):
     return o.reshape(b, s, -1) @ p["w_o"], k, v
 
 
+def _mix(a, m, p, cfg: ModelConfig):
+    """The hybrid layer's merge of its attention and Mamba branches."""
+    return 0.5 * (apply_norm(a, p["norm_attn_out"], "rmsnorm", cfg.norm_eps)
+                  + apply_norm(m, p["norm_mamba_out"], "rmsnorm", cfg.norm_eps))
+
+
 def _layer(x, p, cfg: ModelConfig):
-    """One pre-norm residual layer; also returns the layer's cache entries."""
+    """One pre-norm residual layer from a fresh state.  x: (B,S,D).  Also
+    returns the layer's cache entries (before the window fit): k and v
+    (post-RoPE), and the recurrent states of the rwkv6 and Mamba blocks."""
     h = apply_norm(x, p["norm1"], cfg.norm_kind, cfg.norm_eps)
+    if cfg.block_kind == "rwkv6":
+        t_out, (tx, ts) = rwkv6_time_seq(h, p["rwkv"]["time"])
+        x = x + t_out
+        h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
+        c_out, cx = rwkv6_channel_seq(h, p["rwkv"]["channel"])
+        return x + c_out, {"time_x": tx, "time_s": ts, "chan_x": cx}
     a, k, v = _attention_block(h, p["attn"], cfg)
+    entries = {"k": k, "v": v}
+    if cfg.block_kind == "hybrid":
+        m, (entries["ssm_h"], entries["ssm_conv"]) = mamba_seq(h, p["mamba"], cfg.ssm_state)
+        a = _mix(a, m, p, cfg)
     x = x + a
     h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
-    return x + mlp(h, p["mlp"], cfg.mlp_kind), k, v
+    return x + mlp(h, p["mlp"], cfg.mlp_kind), entries
 
 
 def layer_forward(x, p, cfg: ModelConfig):
     """One decoder layer, pre-norm residual.  x: (B,S,D)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     return _layer(x, p, cfg)[0]
 
 
@@ -135,7 +174,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True, kv_chunk: in
     ``kv_chunk`` is accepted as in the reference and unused: the flash kernel
     tiles by itself."""
     del kv_chunk
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     for p in params["layers"]:
         if remat and torch.is_grad_enabled():
@@ -187,12 +226,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="meta"):
     """The cache's layout. On the default ``meta`` device it allocates
     nothing, as the reference's ShapeDtypeStruct spec; ``zero_cache`` gives a
-    real one."""
-    _require_dense(cfg)
-    shape = (cfg.n_layers, batch, cache_window(cfg, max_len), cfg.n_kv_heads, cfg.d_head)
-    return {"len": 0,
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    real one. The recurrent states are fp32 whatever ``dtype`` is."""
+    _require_ported(cfg)
+    l = cfg.n_layers
+
+    def zeros(shape, dt):
+        return torch.zeros((l,) + shape, dtype=dt, device=device)
+
+    if cfg.block_kind == "rwkv6":
+        return {"len": 0, "rwkv": {name: zeros(shape, dt) for name, (shape, dt)
+                                   in rwkv6_state_shape(batch, cfg.d_model, dtype).items()}}
+    shape = (batch, cache_window(cfg, max_len), cfg.n_kv_heads, cfg.d_head)
+    cache = {"len": 0, "k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+    if cfg.block_kind == "hybrid":
+        (h_shape, h_dt), (c_shape, c_dt) = mamba_state_shape(batch, cfg.d_inner, cfg.ssm_state,
+                                                             dtype)
+        cache["ssm_h"] = zeros(h_shape, h_dt)
+        cache["ssm_conv"] = zeros(c_shape, c_dt)
+    return cache
 
 
 def zero_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -223,38 +274,61 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     """One decoding step.  tokens: (B,) int.  Returns (logits (B,V) fp32,
     cache); the cache's tensors are updated in place and its ``len`` is one
     more."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][tokens[:, None]]
-    b = x.shape[0]
     pos = cache["len"]
-    w = cache["k"].shape[2]
-    dev = x.device
-    pos_t = torch.tensor([pos], device=dev)
-    slot = torch.tensor([pos % w], device=dev)
-    n_valid = torch.full((b,), min(pos + 1, w), dtype=torch.int32, device=dev)
-    for layer, p in enumerate(params["layers"]):
-        h = apply_norm(x, p["norm1"], cfg.norm_kind, cfg.norm_eps)
-        x = x + _decode_attn_layer(h, p["attn"], cfg, cache["k"], cache["v"], layer,
-                                   pos_t, slot, n_valid)
-        h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
-        x = x + mlp(h, p["mlp"], cfg.mlp_kind)
+    if cfg.block_kind == "rwkv6":
+        st = cache["rwkv"]
+        for layer, p in enumerate(params["layers"]):
+            h = apply_norm(x, p["norm1"], cfg.norm_kind, cfg.norm_eps)
+            t_out, (tx, ts) = rwkv6_time_seq(h, p["rwkv"]["time"], st["time_x"][layer],
+                                             st["time_s"][layer])
+            x = x + t_out
+            h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
+            c_out, cx = rwkv6_channel_seq(h, p["rwkv"]["channel"], st["chan_x"][layer])
+            x = x + c_out
+            for name, new in (("time_x", tx), ("time_s", ts), ("chan_x", cx)):
+                st[name][layer].copy_(new)
+    else:
+        b = x.shape[0]
+        w = cache["k"].shape[2]
+        dev = x.device
+        pos_t = torch.tensor([pos], device=dev)
+        slot = torch.tensor([pos % w], device=dev)
+        n_valid = torch.full((b,), min(pos + 1, w), dtype=torch.int32, device=dev)
+        for layer, p in enumerate(params["layers"]):
+            h = apply_norm(x, p["norm1"], cfg.norm_kind, cfg.norm_eps)
+            a = _decode_attn_layer(h, p["attn"], cfg, cache["k"], cache["v"], layer, pos_t,
+                                   slot, n_valid)
+            if cfg.block_kind == "hybrid":
+                m, (sh, sc) = mamba_step(h, p["mamba"], cfg.ssm_state,
+                                         (cache["ssm_h"][layer], cache["ssm_conv"][layer]))
+                a = _mix(a, m, p, cfg)
+                cache["ssm_h"][layer].copy_(sh)
+                cache["ssm_conv"][layer].copy_(sc)
+            x = x + a
+            h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
+            x = x + mlp(h, p["mlp"], cfg.mlp_kind)
     x = apply_norm(x, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     logits = (x[:, 0] @ lm_head_weights(params, cfg)).float()
     return logits, {**cache, "len": pos + 1}
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int, *, dtype=torch.bfloat16):
-    """Run the prompt through the model, filling a cache of ``dtype``.
-    Returns (final hidden (B,S,D), cache)."""
-    _require_dense(cfg)
+    """Run the prompt through the model, filling a cache of ``dtype`` (the
+    recurrent states fp32).  Returns (final hidden (B,S,D), cache)."""
+    _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     w = cache_window(cfg, max_len)
     cache = zero_cache(cfg, b, max_len, dtype, x.device)
+    states = cache["rwkv"] if cfg.block_kind == "rwkv6" else cache
     for layer, p in enumerate(params["layers"]):
-        x, k, v = _layer(x, p, cfg)
-        cache["k"][layer] = _fit_window(k, w, dtype)
-        cache["v"][layer] = _fit_window(v, w, dtype)
+        x, entries = _layer(x, p, cfg)
+        for name, t in entries.items():
+            if name in ("k", "v"):
+                t = _fit_window(t, w, dtype)
+            states[name][layer] = t
     cache["len"] = s
     x = apply_norm(x, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     return x, cache

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
@@ -89,6 +90,49 @@ def test_default_layer_costs_match_every_dense_config(arch):
 
     for kw in ({}, {"head_stage": False}, {"pool_dtype": "int8"}):
         assert costs(plan, _port_cfg(j_cfg), **kw) == costs(j_plan, j_cfg, **kw)
+
+
+RECURRENT = ["rwkv6-7b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_layer_costs_and_param_shapes_match_the_recurrent_configs(arch):
+    """The rwkv6 and hybrid layers at full width: the cost model, counted
+    from the port's ``init_layer``, equals the reference's, and the port's
+    ``init_params`` on the meta device has the shapes and dtypes of the
+    reference's ``abstract_params``, leaf for leaf (layers stacked)."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as T
+
+    j_cfg = j_get_config(arch)
+
+    def costs(mod, cfg, **kw):
+        return [dataclasses.asdict(c) for c in mod.default_layer_costs(cfg, **kw)]
+
+    for kw in ({}, {"head_stage": False}, {"pool_dtype": "int8"}):
+        assert costs(plan, _port_cfg(j_cfg), **kw) == costs(j_plan, j_cfg, **kw)
+
+    def leaves(node, path=()):
+        """(path, (shape, dtype)) in the reference's flatten order (sorted keys)."""
+        if isinstance(node, dict):
+            for key in sorted(node):
+                yield from leaves(node[key], path + (key,))
+        else:
+            yield path, node
+
+    port = T.init_params(get_config(arch), None, device="meta")
+    layers = port.pop("layers")
+    port["layers"] = {path: (len(layers),) + tuple(leaf.shape) for path, leaf in
+                      leaves(layers[0])}
+    got = [(path, tuple(leaf.shape), str(leaf.dtype).removeprefix("torch."))
+           for path, leaf in leaves({k: v for k, v in port.items() if k != "layers"})]
+    got += [(("layers",) + path, port["layers"][path], str(leaf.dtype).removeprefix("torch."))
+            for path, leaf in leaves(layers[0])]
+    got.sort()
+    want = sorted((tuple(k.key for k in path), tuple(leaf.shape), str(leaf.dtype))
+                  for path, leaf in jax.tree_util.tree_flatten_with_path(
+                      JT.abstract_params(j_cfg))[0])
+    assert got == want
 
 
 def _cfg(n_layers=None, smoke=True):
