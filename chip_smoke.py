@@ -10,11 +10,17 @@ Phases, in order; any failure exits non-zero at once:
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (seven
      libraries: flash attention forward and backward, flash-decode, fused
      LM-head cross-entropy, dequant-on-upload, the RWKV6 scan and the Mamba
-     selective scan);
+     selective scan); print ptxas's register and spill report and each
+     library's SASS opcode counts (``cuobjdump -sass``), and fail unless the
+     flash forward issues wgmma (HGMMA) and TMA loads (UTMALDG) and
+     flash-decode 16-byte asynchronous copies with no spills;
   3. hold each kernel against its plain PyTorch version on the card: the
      serving kernels at the serving shapes of qwen3-1.7b and hymba-1.5b
      (flash at group 5, d_head 64, window 1024; flash-decode over its full
-     and a partly filled ring of 1024 slots) and over an edge sweep, at the
+     and a partly filled ring of 1024 slots) and over an edge sweep (for
+     flash-decode also the edges of its splits: S one past a whole number of
+     splits, n_valid on a split edge and one past it, 0 and past S, at
+     groups 4, 5 and 16), at the
      tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2); the
      training kernels at the training shapes and over an edge sweep, the
      flash backward against ``ref.flash_attention_bwd_ref`` and against
@@ -41,7 +47,10 @@ Phases, in order; any failure exits non-zero at once:
      same prefix one token longer (bf16 and, at two layers, fp32);
   5. time the serving steps, and the serving kernels beside their plain
      versions, their bounds and ``scaled_dot_product_attention`` (a
-     yardstick only: the port never calls it); then serve full-width
+     yardstick only: the port never calls it), by CUDA events over
+     back-to-back calls and by device time (a replayed CUDA graph of the
+     calls; for flash-decode and SDPA also each kernel's summed duration in a
+     profiler trace); then serve full-width
      rwkv6-7b (prompt 1024) and hymba-1.5b (prompt 1536, past its window of
      1024) the same way, batch 4 and 32 greedy tokens, each with the counts
      set to 0 just before and read just after (rwkv6-7b: 1056 ``rwkv_scan``
@@ -87,6 +96,7 @@ import bisect
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -138,7 +148,15 @@ def phase_device():
     return smi
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "LDG", "LDL", "STL", "SHFL", "MUFU")
+
+
 def phase_build():
+    """Build every library; print ptxas's reports and, per library, the counts
+    of the SASS opcodes that show how it loads and multiplies. Fails unless
+    the flash forward issues wgmma (HGMMA) and TMA loads (UTMALDG), and
+    flash-decode 16-byte asynchronous copies (LDGSTS or UTMALDG) with no
+    local-memory spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -147,6 +165,20 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    summary = {}
+    for name in _build.KERNELS:
+        per_fn = _build.sass_opcodes(_build.sass(name))
+        summary[name] = {op: sum(c.get(op, 0) for c in per_fn.values()) for op in SASS_OPS}
+        spills = re.findall(r"(\d+) bytes spill stores", logs.get(name, ""))
+        if spills:   # ptxas reports only on a fresh build
+            summary[name]["ptxas_spill_store_bytes"] = sum(int(x) for x in spills)
+    print("sass " + json.dumps(summary))
+    fa, de = summary["flash_attention"], summary["decode_attention"]
+    check(fa["HGMMA"] > 0 and fa["UTMALDG"] > 0,
+          f"flash_attention: no wgmma or no TMA load in its SASS: {fa}")
+    check(de["LDGSTS"] + de["UTMALDG"] > 0 and de["LDL"] + de["STL"] == 0,
+          f"decode_attention: no 16-byte asynchronous copy, or spills: {de}")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +215,8 @@ def flash_cases():
     for dtype in (f32, bf16):       # the sweep of tests/test_kernels.py
         for s, h, kh, d in [(128, 4, 4, 32), (256, 8, 2, 16), (192, 4, 1, 64),
                             (128, 2, 2, 48)]:
-            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}", 2, s, h, kh, d, d, True, None,
-                          dtype, "bshd"))
+            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}-{dtype_name(dtype)}", 2, s, h, kh, d,
+                          d, True, None, dtype, "bshd"))
     for w in (32, 100, 1000):
         cases.append((f"window-{w}", 1, 256, 4, 2, 32, 32, True, w, f32, "bshd"))
     cases += [("bidirectional", 2, 128, 4, 4, 32, 32, False, None, f32, "bshd"),
@@ -232,14 +264,38 @@ def decode_cases():
              ("hymba-f32", BATCH, w, h, kh, d, d, [w, 700, 1, 2][:BATCH], f32, "dense")]
     for dtype in (f32, bf16):       # the sweep of tests/test_kernels.py
         for s, h, kh, d in [(512, 8, 2, 32), (1024, 4, 4, 64), (384, 8, 1, 16)]:
-            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}", 2, s, h, kh, d, d, [s, s // 3],
-                          dtype, "dense"))
+            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}-{dtype_name(dtype)}", 2, s, h, kh, d,
+                          d, [s, s // 3], dtype, "dense"))
     cases += [("single-valid", 1, 256, 4, 2, 32, 32, 1, f32, "dense"),
               ("dv-ne-dh", 2, 300, 8, 2, 40, 32, [300, 7], f32, "dense"),
               ("g16", 2, 300, 16, 1, 128, 128, [299, 150], f32, "dense"),
               ("none-and-over", 2, 64, 4, 2, 32, 32, [0, 1000], f32, "dense"),
               ("strided", 2, 200, 16, 8, 128, 128, [200, 33], bf16, "sliced")]
+    # caches the 16-byte copies cannot read (bf16 rows of 72 and 40 bytes, a
+    # base 4 bytes off): the wrapper's padded copies
+    cases += [(f"unaligned-{dtype_name(dtype)}", 2, 300, 8, 2, 36, 20, [300, 7], dtype,
+               "misaligned") for dtype in (f32, bf16)]
+    # the split pass's edges, on the plan the wrapper makes for these shapes:
+    # S one past a whole number of splits; n_valid on a split edge and one
+    # past it (later splits empty), 0 (uniform over all S) and past S
+    for dtype in (f32, bf16):
+        for b, h, kh, d, dv in [(4, 8, 2, 64, 64), (4, 25, 5, 64, 64), (2, 16, 1, 128, 96)]:
+            chunk = _decode_chunk(321, b, kh)
+            s = 5 * chunk + 1
+            check(_decode_chunk(s, b, kh) == chunk, f"split edges: the plan moved at S={s}")
+            nv = [2 * chunk, 2 * chunk + 1, 0, s + 100][:b]
+            cases.append((f"split-edges-b{b}-h{h}-kh{kh}-d{d}-dv{dv}-{dtype_name(dtype)}", b, s,
+                          h, kh, d, dv, nv, dtype, "dense"))
     return cases
+
+
+def _decode_chunk(s, b, kh):
+    """The slots per split the flash-decode wrapper plans for a cache of ``s``
+    slots at (B, KH) on this card."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return decode_plan(s, b, kh, sms)[1]
 
 
 def _decode_inputs(b, s, h, kh, dh, dv, dtype, layout, gen):
@@ -248,8 +304,11 @@ def _decode_inputs(b, s, h, kh, dh, dv, dtype, layout, gen):
         k = _rand((b, s, kh, 2 * dh), dtype, gen)[..., :dh]
         v = _rand((b, s, kh, 2 * dv), dtype, gen)[..., :dv]
         return q, k, v
-    return (_rand((b, h, dh), dtype, gen), _rand((b, s, kh, dh), dtype, gen),
-            _rand((b, s, kh, dv), dtype, gen))
+    q, k, v = (_rand((b, h, dh), dtype, gen), _rand((b, s, kh, dh), dtype, gen),
+               _rand((b, s, kh, dv), dtype, gen))
+    if layout == "misaligned":
+        k, v = _misaligned(k), _misaligned(v)
+    return q, k, v
 
 
 def phase_kernels():
@@ -334,8 +393,8 @@ def flash_bwd_cases():
     cases = [("training", *shape, bf16, "bshd"), ("training-f32", *shape, f32, "bshd")]
     for dtype in (f32, bf16):
         for s, h, kh, d in [(128, 4, 4, 32), (256, 8, 2, 16), (192, 4, 1, 64), (128, 2, 2, 48)]:
-            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}", 2, s, h, kh, d, d, True, None,
-                          dtype, "bshd"))
+            cases.append((f"sweep-s{s}-h{h}-kh{kh}-d{d}-{dtype_name(dtype)}", 2, s, h, kh, d,
+                          d, True, None, dtype, "bshd"))
     cases += [("window-100", 1, 300, 4, 2, 64, 64, True, 100, f32, "bshd"),
               ("window-bf16", 1, 300, 4, 2, 64, 64, True, 100, bf16, "bshd"),
               ("bidirectional", 2, 130, 4, 4, 32, 32, False, None, f32, "bshd"),
@@ -528,6 +587,56 @@ def _time_ms(fn, sets, reps):
     return start.elapsed_time(end) / (reps * len(sets))
 
 
+def _graph_ms(fn, sets, reps, replays=5):
+    """Device ms per call: ``reps`` passes through ``sets`` captured in one
+    CUDA graph, replayed ``replays`` times between two events. The host's
+    launch path is not timed; gaps between the graph's kernels are."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for args in sets:
+                fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps * len(sets))
+
+
+def _kernel_ms(fn, sets, reps):
+    """{kernel name: device ms per call}: the summed duration of each kernel
+    in a ``torch.profiler`` trace of ``reps`` passes through ``sets``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for args in sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for args in sets:
+                fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"(\w+)(?:<|\()", e.name)
+            name = found.group(1) if found else e.name[:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / (reps * len(sets))
+    return out
+
+
 def _sdpa_gqa():
     import torch
     major, minor = (int(x) for x in torch.__version__.split(".")[:2])
@@ -560,15 +669,20 @@ def phase_timings(served, errs, launches):
         lib_sets = [(q, k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
                     for q, k, v in lib_sets]
     kw = {"enable_gqa": True} if gqa else {}
-    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                     **kw), lib_sets, 10)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)  # noqa: E731
+    lib_ms = _time_ms(sdpa, lib_sets, 10)
     elem = 2
     nbytes = (2 * BATCH * PROMPT * h * d + 2 * BATCH * PROMPT * kh * d) * elem
     pairs = PROMPT * (PROMPT + 1) // 2
     flops = 2 * BATCH * h * pairs * (d + d)
-    out.append(_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:78", launches, errs, ms, plain_ms,
-                    lib_ms, nbytes, flops, "bfloat16"))
+    row = _row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:78", launches, errs, ms, plain_ms,
+               lib_ms, nbytes, flops, "bfloat16")
+    row.update({"device_ms": _graph_ms(lambda q, k, v: flash_attention(q, k, v, causal=True),
+                                       sets, 5),
+                "library_device_ms": _graph_ms(sdpa, lib_sets, 5),
+                "tflops": flops / (ms * 1e-3) / 1e12})
+    out.append(row)
     del sets, lib_sets
 
     # flash-decode at the last decode step's shapes: the cache is full
@@ -582,13 +696,21 @@ def phase_timings(served, errs, launches):
     if not gqa:
         lib_sets = [(q, k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
                     for q, k, v in lib_sets]
-    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw),
-                      lib_sets, 20)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+    lib_ms = _time_ms(sdpa, lib_sets, 20)
     nbytes = (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH
     flops = 2 * BATCH * h * w * (d + d)
-    out.append(_row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-                    "src/repro/kernels/decode_attention.py:55", launches, errs, ms, plain_ms,
-                    lib_ms, nbytes, flops, "bfloat16"))
+    row = _row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:55", launches, errs, ms, plain_ms,
+               lib_ms, nbytes, flops, "bfloat16")
+    kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
+    # At ~10 us a call, events over back-to-back calls time the host's launch
+    # path; the device time comes from replaying a CUDA graph of the calls.
+    row.update({"device_ms": _graph_ms(kern, sets, 20),
+                "library_device_ms": _graph_ms(sdpa, lib_sets, 20),
+                "device_kernels_ms": _kernel_ms(kern, sets, 10),
+                "library_device_kernels_ms": _kernel_ms(sdpa, lib_sets, 10)})
+    out.append(row)
     del sets, lib_sets
 
     # serving steps, warm, timed on the host around a synchronise
@@ -953,7 +1075,8 @@ def _scan_compare(name, got, want, dtype) -> float:
 
 def _misaligned(t):
     """The same values in a contiguous tensor that starts 4 bytes past a
-    16-byte boundary: the kernels' scalar staging path."""
+    16-byte boundary: the scans' scalar staging path, flash-decode's padded
+    copies."""
     import torch
     flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
     out = flat[4 // t.element_size():][:t.numel()].view(t.shape)
@@ -1387,14 +1510,15 @@ def phase_hybrid_attention_timings(rows, errs):
     def widen(k, v):
         return (k, v) if gqa else (k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
 
-    def record(name, shape, ms, plain_ms, lib_ms, nbytes, flops):
+    def record(name, shape, ms, plain_ms, lib_ms, nbytes, flops, device):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         by_name[name].update({
             "hymba_shape": shape, "hymba_ms": ms, "hymba_plain_ms": plain_ms,
             "hymba_library_ms": lib_ms, "hymba_bound_ms": max(t_bytes, t_ops),
             "hymba_bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "hymba_err": errs[f"{name}@hymba"]})
+            "hymba_err": errs[f"{name}@hymba"],
+            **{f"hymba_{k}": v for k, v in device.items()}})
 
     # prefill: each query sees min(i + 1, window) keys
     sets = [_flash_inputs(BATCH, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
@@ -1408,12 +1532,14 @@ def phase_hybrid_attention_timings(rows, errs):
     for q, k, v in sets:
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_sets.append((q, *widen(k, v)))
-    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                     **kw), lib_sets, 10)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)  # noqa: E731
+    lib_ms = _time_ms(sdpa, lib_sets, 10)
     pairs = sum(min(i + 1, w) for i in range(s))
+    kern = lambda q, k, v: flash_attention(q, k, v, causal=True, sliding_window=w)  # noqa: E731
     record("flash_attention", f"B={BATCH}, S={s}, H={h}, KH={kh}, Dh={d}, window {w}, bf16",
            ms, plain_ms, lib_ms, (2 * BATCH * s * h * d + 2 * BATCH * s * kh * d) * elem,
-           2 * BATCH * h * pairs * (d + d))
+           2 * BATCH * h * pairs * (d + d),
+           {"device_ms": _graph_ms(kern, sets, 5), "library_device_ms": _graph_ms(sdpa, lib_sets, 5)})
     del sets, lib_sets
 
     # decode: one token over the full ring of `window` slots
@@ -1424,10 +1550,16 @@ def phase_hybrid_attention_timings(rows, errs):
     lib_sets = [(q[:, :, None, :], *widen(k.transpose(1, 2).contiguous(),
                                           v.transpose(1, 2).contiguous()))
                 for q, k, v in sets]
-    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw), lib_sets, 20)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+    lib_ms = _time_ms(sdpa, lib_sets, 20)
+    kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
     record("decode_attention", f"B={BATCH}, ring {w}, H={h}, KH={kh}, Dh={d}, n_valid {w}, bf16",
            ms, plain_ms, lib_ms, (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
-           2 * BATCH * h * w * (d + d))
+           2 * BATCH * h * w * (d + d),
+           {"device_ms": _graph_ms(kern, sets, 20),
+            "library_device_ms": _graph_ms(sdpa, lib_sets, 20),
+            "device_kernels_ms": _kernel_ms(kern, sets, 10),
+            "library_device_kernels_ms": _kernel_ms(sdpa, lib_sets, 10)})
     del sets, lib_sets
     torch.cuda.empty_cache()
     print("hymba attention timings " + json.dumps(
@@ -1637,6 +1769,12 @@ def phase_dequant_timings(errs, launches):
     return row
 
 
+# The device kernels each attention wrapper launches, by name in a trace.
+ATTENTION_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
+                                          "decode_combine_kernel"),
+                     "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")}
+
+
 def _trace(fn, calls):
     """Per call: host wall time under the profiler; the device's busy time
     (the sum of its kernel and copy events) and share of that wall time; the
@@ -1678,6 +1816,9 @@ def _trace(fn, calls):
     scans = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name)
              for k in ("rwkv_scan", "ssm_scan")}
     out.update({f"{k}_ms": us / 1e3 / calls for k, us in scans.items() if us})
+    attention = {k: sum(us for name, us in by_name.items() if any(p in name for p in parts))
+                 for k, parts in ATTENTION_KERNELS.items()}
+    out.update({f"{k}_ms": us / 1e3 / calls for k, us in attention.items() if us})
     if ranges:
         out["slot_kinds_ms"] = {k: us / 1e3 / calls for k, us in sorted(by_kind.items())}
     return out

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -80,6 +81,38 @@ def build(names=KERNELS) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (``cuobjdump``) beside the ``nvcc`` in use."""
+    return str(Path(_nvcc()).resolve().parent / name)
+
+
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (built first if needed), as ``cuobjdump
+    -sass`` prints it."""
+    build((name,))
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_opcodes(text: str) -> dict[str, dict[str, int]]:
+    """Opcode counts per function of a ``cuobjdump -sass`` listing, keyed by
+    the function's mangled name; an opcode is counted without its modifiers
+    (``LDGSTS.E.BYPASS.128`` counts as ``LDGSTS``)."""
+    out: dict[str, dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            counts = out.setdefault(line.split("Function :", 1)[1].strip(), {})
+            continue
+        found = _SASS_OP.search(line) if counts is not None else None
+        if found:
+            counts[found.group(1)] = counts.get(found.group(1), 0) + 1
+    return out
 
 
 @functools.cache

@@ -12,206 +12,598 @@
 // and V cache once (17 MB at B=4, S=1056, KH=8, D=128 in bf16) and does about
 // 2 FLOP per byte, so memory bandwidth bounds it (~5 us at 3.35 TB/s).
 //
-// Design:
-//   * one block per (kv head, batch) takes the G query heads of the group
-//     together, so each cache row is read once for all G heads; the block
-//     loads n_valid[b] itself (the TPU kernel's scalar prefetch) and visits
-//     only the valid slots;
-//   * 8 warps split the valid slots; a warp reads 4 consecutive cache rows
-//     before it uses any of them, so 4 rows' loads are in flight per warp;
-//     lane l holds dims l, l+32, l+64, l+96, so each load is coalesced;
-//   * each warp keeps its own running (m, l, acc) per query head in fp32
-//     registers; the 8 partial states are merged through shared memory.
-// At B=4, KH=8 this is 32 blocks on the card's 132 SMs, so one decode call
-// can use at most a quarter of the SMs' load bandwidth; splitting S over more
-// blocks with a combine pass is the work of a later change.
+// Design (flash-decoding: the cache is split over blocks, then merged):
+//   * the grid is (KH, B, splits); a block takes one kv head of one batch row
+//     and one split of `chunk` slots, and all G query heads of the group
+//     together, so each cache row is read once for all G heads. The wrapper
+//     chooses splits and chunk from S, B and KH (never from n_valid, which
+//     lives on the card) so that the card holds ~2 blocks per SM;
+//   * the block streams its slots through a ring of tiles in shared memory
+//     with 16-byte cp.async copies (zero past Dh, Dv and the split's end); the
+//     wrapper gives the kernel caches whose base and row strides are 16-byte
+//     multiples (misaligned ones as zero-padded copies);
+//   * bf16 (the serving path) runs both products on the tensor cores
+//     (decode_mma_kernel): the G heads are the 16 rows of mma.sync m16n8k16
+//     (zero past G), each warp takes 16 slots of a tile, K fragments come by
+//     ldmatrix and V fragments by ldmatrix.trans, and the probabilities pass
+//     from the scores' accumulators to the second product in registers
+//     (rounded to bf16, as the flash forward does); one online-softmax update
+//     per 16 slots;
+//   * fp32 runs scalar FMAs (decode_f32_kernel): a cache row is spread over
+//     the 32 lanes of a warp, 4 dims a lane; each warp scores its rows of a
+//     tile one at a time against the group's heads (up to 16) and makes one
+//     online-softmax update per row;
+//   * the warps' (m, l, acc) merge through shared memory into one fp32
+//     partial per (b, head, split), in base 2; a second small kernel, launched
+//     by the same entry call, merges the splits. A split that starts at or
+//     past a positive n_valid[b] writes m = -1e30, l = 0 and adds nothing;
+//     with n_valid[b] <= 0 each split holds m = -1e30, l = its slot count and
+//     the sum of its V rows, and the merge gives the uniform average.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kDMax = 128;              // largest Dh and Dv taken
-constexpr int kWarps = 8;
+constexpr int kDMax = 128;     // largest Dh and Dv taken
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPerLane = kDMax / 32;    // dims held per lane
-constexpr int kUnroll = 4;              // cache rows in flight per warp
+constexpr int kGMax = 16;      // largest group of query heads per kv head
+constexpr int kStages = 2;     // tiles in flight per block
+constexpr float kLog2e = 1.4426950408889634f;   // scores and partial maxima are base 2
 
-// kG is a compile-time bound on the heads per kv head; g <= kG is the real count.
-template <typename T, int kG>
+// One tile of kRows cache rows from `first` on, K and V, into one stage with
+// rows kLd elements apart; rows at or past `end` and dims past dh / dv are zero.
+// The bases and row strides are 16-byte multiples.
+template <typename T, int kD, int kRows, int kLd>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kbase, const T* vbase,
+                                          int first, int end, int dh, int dv, int64_t k_ss,
+                                          int64_t v_ss) {
+  constexpr int kPack = 16 / sizeof(T);
+  constexpr int kChunks = kD / kPack;          // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < 2 * kRows * kChunks; idx += kThreads) {
+    const bool is_v = idx >= kRows * kChunks;
+    const int i = is_v ? idx - kRows * kChunks : idx;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * kPack;
+    const int p = first + r;
+    const int d = is_v ? dv : dh;
+    const T* src = is_v ? vbase + p * v_ss : kbase + p * k_ss;
+    T* dst = (is_v ? vs : ks) + r * kLd + c;
+    const int n = p < end ? min(max(d - c, 0), kPack) : 0;
+    hopper::cp_async16(dst, n > 0 ? src + c : (is_v ? vbase : kbase),
+                       n * static_cast<int>(sizeof(T)));
+  }
+}
+
+// The block's partial from its workers' states in shared memory: acc
+// [kWorkers][kG][kD], m and l [kWorkers][kG] (base 2). Writes (M, L) and
+// sum_w acc_w 2^(m_w - M) for each of the g heads. Ends the block's use of
+// the three arrays; the caller has synchronised after writing them.
+template <int kWorkers, int kG, int kD>
+__device__ __forceinline__ void merge_workers(const float* s_acc, const float* s_m, float* s_l,
+                                              float* part_ml, float* part_acc, int64_t part0,
+                                              int g, int dv, int splits) {
+  // one weight per (worker, head): 2^(m_w - M) for the head's max M
+  if (threadIdx.x < kG) {
+    const int gi = threadIdx.x;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWorkers; ++w) mx = fmaxf(mx, s_m[w * kG + gi]);
+    float den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWorkers; ++w) {
+      const float f = hopper::exp2_approx(s_m[w * kG + gi] - mx);
+      den = fmaf(s_l[w * kG + gi], f, den);
+      s_l[w * kG + gi] = f;
+    }
+    if (gi < g) {
+      const int64_t part = part0 + static_cast<int64_t>(gi) * splits;
+      part_ml[2 * part] = mx;
+      part_ml[2 * part + 1] = den;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g * dv; idx += kThreads) {
+    const int gi = idx / dv;
+    const int d = idx - gi * dv;
+    float num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWorkers; ++w) {
+      num = fmaf(s_acc[(w * kG + gi) * kD + d], s_l[w * kG + gi], num);
+    }
+    part_acc[(part0 + static_cast<int64_t>(gi) * splits) * dv + d] = num;
+  }
+}
+
+// A split that starts at or past a positive n_valid: the merge weighs it by 0.
+__device__ __forceinline__ void write_empty(float* part_ml, float* part_acc, int64_t part0,
+                                            int g, int dv, int splits) {
+  for (int idx = threadIdx.x; idx < g * dv; idx += kThreads) {
+    part_acc[(part0 + static_cast<int64_t>(idx / dv) * splits) * dv + idx % dv] = 0.f;
+  }
+  for (int gi = threadIdx.x; gi < g; gi += kThreads) {
+    part_ml[2 * (part0 + static_cast<int64_t>(gi) * splits)] = kNegInf;
+    part_ml[2 * (part0 + static_cast<int64_t>(gi) * splits) + 1] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Rows = 16;                    // cache rows per tile
+constexpr int kF32WarpRows = kF32Rows / kWarps;  // rows of a tile per warp
+
+// Heads past the real group g score zeros and are never written. Each warp
+// keeps its own (m, l, acc): the workers that merge_workers joins.
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ n_valid, T* __restrict__ o, int s, int h, int kh, int dh,
-              int dv, int g, int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-              int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
-  using E = Elem<T>;
-  extern __shared__ float smem[];  // acc [kWarps][g][kDMax], then m and l [kWarps][g]
-  float* s_acc = smem;
-  float* s_m = s_acc + kWarps * g * kDMax;
-  float* s_l = s_m + kWarps * g;
+decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                  const float* __restrict__ vc, const int* __restrict__ n_valid,
+                  float* __restrict__ part_ml, float* __restrict__ part_acc, int s, int h,
+                  int dh, int dv, int g, int splits, int chunk, int64_t q_sb, int64_t q_sh,
+                  int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                  int64_t v_sh, float scale_log2) {
+  constexpr int kP = kDMax / 32;                 // dims per lane: one float4
+  static_assert(kP == 4, "a lane's dims are one float4");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);      // [kStages][kF32Rows][kDMax]
+  float* vs = ks + kStages * kF32Rows * kDMax;         // [kStages][kF32Rows][kDMax]
 
   const int khi = blockIdx.x;
   const int bi = blockIdx.y;
+  const int split = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, s);
   int n = n_valid[bi];
   const bool none_valid = n <= 0;
   n = none_valid ? s : min(n, s);
+  const int end = min(s1, n);    // slots [s0, end) count in this split
+  const int64_t part0 = (static_cast<int64_t>(bi) * h + khi * g) * splits + split;
 
-  float qr[kG][kPerLane];
-  float acc[kG][kPerLane];
-  float m[kG];
-  float l[kG];
+  if (end <= s0) {   // nothing to add
+    write_empty(part_ml, part_acc, part0, g, dv, splits);
+    return;
+  }
+  const int ntiles = (end - s0 + kF32Rows - 1) / kF32Rows;
+  const float* kbase = kc + bi * k_sb + khi * k_sh;
+  const float* vbase = vc + bi * v_sb + khi * v_sh;
+
 #pragma unroll
-  for (int gi = 0; gi < kG; ++gi) {
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) {
+      load_tile<float, kDMax, kF32Rows, kDMax>(ks + t * kF32Rows * kDMax,
+                                               vs + t * kF32Rows * kDMax, kbase, vbase,
+                                               s0 + t * kF32Rows, end, dh, dv, k_ss, v_ss);
+    }
+    hopper::cp_async_commit();
+  }
+
+  hopper::launch_dependents();
+  float qr[kGMax][kP];
+  float acc[kGMax][kP];
+  float m[kGMax];
+  float l[kGMax];
+#pragma unroll
+  for (int gi = 0; gi < kGMax; ++gi) {
     const int64_t qoff = bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int d = e * 32 + lane;
-      qr[gi][e] = (gi < g && d < dh) ? E::to_float(q[qoff + d]) : 0.f;
+    for (int e = 0; e < kP; ++e) {
+      const int d = lane * kP + e;
+      qr[gi][e] = (gi < g && d < dh) ? q[qoff + d] : 0.f;
       acc[gi][e] = 0.f;
     }
     m[gi] = kNegInf;
     l[gi] = 0.f;
   }
 
-  const T* kbase = kc + bi * k_sb + khi * k_sh;
-  const T* vbase = vc + bi * v_sb + khi * v_sh;
-  for (int p0 = warp * kUnroll; p0 < n; p0 += kWarps * kUnroll) {
-    float kf[kUnroll][kPerLane];
-    float vf[kUnroll][kPerLane];
+  for (int t = 0; t < ntiles; ++t) {
+    const int ahead = t + kStages - 1;
+    if (ahead < ntiles) {
+      const int st = ahead % kStages;
+      load_tile<float, kDMax, kF32Rows, kDMax>(ks + st * kF32Rows * kDMax,
+                                               vs + st * kF32Rows * kDMax, kbase, vbase,
+                                               s0 + ahead * kF32Rows, end, dh, dv, k_ss, v_ss);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<kStages - 1>();   // tile t has landed
+    __syncthreads();
+    const float* kt = ks + (t % kStages) * kF32Rows * kDMax;
+    const float* vt = vs + (t % kStages) * kF32Rows * kDMax;
+    for (int r = 0; r < kF32WarpRows; ++r) {
+      const int row = warp * kF32WarpRows + r;
+      if (s0 + t * kF32Rows + row >= end) break;   // the same for the whole warp
+      const float4 kv = *reinterpret_cast<const float4*>(kt + row * kDMax + lane * kP);
+      const float4 vv = *reinterpret_cast<const float4*>(vt + row * kDMax + lane * kP);
+      const float kf[kP] = {kv.x, kv.y, kv.z, kv.w};
+      const float vf[kP] = {vv.x, vv.y, vv.z, vv.w};
+      float sc[kGMax];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int p = p0 + u;
+      for (int gi = 0; gi < kGMax; ++gi) {
+        float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) {
-        const int d = e * 32 + lane;
-        kf[u][e] = (p < n && d < dh) ? E::to_float(kbase[p * k_ss + d]) : 0.f;
-        vf[u][e] = (p < n && d < dv) ? E::to_float(vbase[p * v_ss + d]) : 0.f;
+        for (int e = 0; e < kP; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
+        sc[gi] = dot;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int gi = 0; gi < kGMax; ++gi) sc[gi] += __shfl_xor_sync(0xffffffffu, sc[gi], off);
+      }
+#pragma unroll
+      for (int gi = 0; gi < kGMax; ++gi) {
+        const float x = none_valid ? kNegInf : sc[gi] * scale_log2;
+        const float mx = fmaxf(m[gi], x);
+        const float corr = hopper::exp2_approx(m[gi] - mx);
+        const float p = hopper::exp2_approx(x - mx);
+        l[gi] = fmaf(l[gi], corr, p);
+#pragma unroll
+        for (int e = 0; e < kP; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e] * corr);
+        m[gi] = mx;
       }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (p0 + u >= n) break;  // the same for every lane of the warp
-#pragma unroll
-      for (int gi = 0; gi < kG; ++gi) {
-        if (gi < g) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < kPerLane; ++e) dot = fmaf(qr[gi][e], kf[u][e], dot);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          const float sc = none_valid ? kNegInf : dot * scale;
-          const float m_new = fmaxf(m[gi], sc);
-          const float corr = expf(m[gi] - m_new);
-          const float p = expf(sc - m_new);
-          l[gi] = l[gi] * corr + p;
-#pragma unroll
-          for (int e = 0; e < kPerLane; ++e) acc[gi][e] = fmaf(acc[gi][e], corr, p * vf[u][e]);
-          m[gi] = m_new;
-        }
-      }
-    }
+    __syncthreads();   // the stage is free for the tile kStages ahead
   }
+  hopper::cp_async_wait<0>();
+  __syncthreads();
 
+  // Merge the warps' states through shared memory (the stages are free).
+  float* s_acc = reinterpret_cast<float*>(smem_raw);   // [kWarps][kGMax][kDMax]
+  float* s_m = s_acc + kWarps * kGMax * kDMax;         // [kWarps][kGMax]
+  float* s_l = s_m + kWarps * kGMax;
 #pragma unroll
-  for (int gi = 0; gi < kG; ++gi) {
-    if (gi < g) {
+  for (int gi = 0; gi < kGMax; ++gi) {
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) {
-        s_acc[(warp * g + gi) * kDMax + e * 32 + lane] = acc[gi][e];
-      }
-      if (lane == 0) {
-        s_m[warp * g + gi] = m[gi];
-        s_l[warp * g + gi] = l[gi];
-      }
+    for (int e = 0; e < kP; ++e) s_acc[(warp * kGMax + gi) * kDMax + lane * kP + e] = acc[gi][e];
+    if (lane == 0) {
+      s_m[warp * kGMax + gi] = m[gi];
+      s_l[warp * kGMax + gi] = l[gi];
     }
   }
   __syncthreads();
+  merge_workers<kWarps, kGMax, kDMax>(s_acc, s_m, s_l, part_ml, part_acc, part0, g, dv, splits);
+}
 
-  // A warp that saw no slot holds m = -1e30, l = 0, acc = 0 and adds nothing.
-  for (int idx = threadIdx.x; idx < g * dv; idx += kThreads) {
-    const int gi = idx / dv;
-    const int d = idx - gi * dv;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * g + gi]);
-    float den = 0.f;
-    float num = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(s_m[w * g + gi] - mx);
-      den = fmaf(s_l[w * g + gi], f, den);
-      num = fmaf(s_acc[(w * g + gi) * kDMax + d], f, num);
+// ---------------------------------------------------------------------------
+// bf16: the G heads as the 16 rows of mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 64;     // slots per tile: 16 per warp
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_addr(p)));
+}
+
+// kD: Dh and Dv padded to 64 or 128. Shared-memory rows are kD + 8 elements
+// apart (16 bytes of padding), so ldmatrix's eight row addresses fall on
+// distinct banks. Fragment layouts of m16n8k16 (PTX ISA), with gq = lane / 4
+// and t = lane % 4: C values {0,1,2,3} at (gq, 2t), (gq, 2t+1), (gq+8, 2t),
+// (gq+8, 2t+1); here a row is a head and a column a slot (scores) or a dim
+// (output).
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
+                  const bf16* __restrict__ vc, const int* __restrict__ n_valid,
+                  float* __restrict__ part_ml, float* __restrict__ part_acc, int s, int h,
+                  int dh, int dv, int g, int splits, int chunk, int64_t q_sb, int64_t q_sh,
+                  int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                  int64_t v_sh, float scale_log2) {
+  constexpr int kLd = kD + 8;
+  constexpr int kSteps = kD / 16;     // k-steps of the scores
+  constexpr int kDt = kD / 8;         // 8-dim tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);       // [kStages][kMmaRows][kLd]
+  bf16* vs = ks + kStages * kMmaRows * kLd;
+
+  const int khi = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int split = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;
+  const int t4 = lane % 4;
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, s);
+  const bf16* kbase = kc + bi * k_sb + khi * k_sh;
+  const bf16* vbase = vc + bi * v_sb + khi * v_sh;
+  // q as A fragments: rows = heads of the group (zero past g), k = dims
+  uint32_t qa[kSteps][4];
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int gi = gq + (r & 1) * 8;
+      const int c = st * 16 + 2 * t4 + (r >= 2 ? 8 : 0);
+      const bf16* qrow = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
+      const bool in = gi < g;
+      const bf16 zero = __float2bfloat16(0.f);
+      qa[st][r] = pack2(in && c < dh ? qrow[c] : zero, in && c + 1 < dh ? qrow[c + 1] : zero);
     }
-    o[(static_cast<int64_t>(bi) * h + khi * g + gi) * dv + d] = E::from_float(num / fmaxf(den, 1e-30f));
   }
+
+  int n = n_valid[bi];
+  const bool none_valid = n <= 0;
+  n = none_valid ? s : min(n, s);
+  const int end = min(s1, n);
+  const int64_t part0 = (static_cast<int64_t>(bi) * h + khi * g) * splits + split;
+  if (end <= s0) {
+    write_empty(part_ml, part_acc, part0, g, dv, splits);
+    return;
+  }
+  const int ntiles = (end - s0 + kMmaRows - 1) / kMmaRows;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) {
+      load_tile<bf16, kD, kMmaRows, kLd>(ks + t * kMmaRows * kLd, vs + t * kMmaRows * kLd,
+                                         kbase, vbase, s0 + t * kMmaRows, end, dh, dv, k_ss,
+                                         v_ss);
+    }
+    hopper::cp_async_commit();
+  }
+  hopper::launch_dependents();
+  float o[kDt][4];
+#pragma unroll
+  for (int j = 0; j < kDt; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};   // heads gq and gq + 8
+  float l[2] = {0.f, 0.f};           // this thread's share of each head's sum
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int ahead = t + kStages - 1;
+    if (ahead < ntiles) {
+      const int st = ahead % kStages;
+      load_tile<bf16, kD, kMmaRows, kLd>(ks + st * kMmaRows * kLd, vs + st * kMmaRows * kLd,
+                                         kbase, vbase, s0 + ahead * kMmaRows, end, dh, dv,
+                                         k_ss, v_ss);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int slot0 = s0 + t * kMmaRows + warp * 16;
+    if (slot0 < end) {   // the same for the whole warp
+      const bf16* kt = ks + (t % kStages) * kMmaRows * kLd + warp * 16 * kLd;
+      const bf16* vt = vs + (t % kStages) * kMmaRows * kLd + warp * 16 * kLd;
+      // scores: sc[j] is the 16 x 8 tile of slots [8 j, 8 j + 8) of this warp
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const int mi = lane / 8;
+      const int rr = lane % 8;
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        uint32_t b[4];   // {b0, b1} of slots 0-7, then of slots 8-15
+        ldmatrix_x4(b, kt + ((mi >> 1) * 8 + rr) * kLd + st * 16 + (mi & 1) * 8);
+        mma_bf16(sc[0], qa[st], b[0], b[1]);
+        mma_bf16(sc[1], qa[st], b[2], b[3]);
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = slot0 + 8 * j + 2 * t4 + (e & 1) < end;
+          const float x = none_valid ? kNegInf : sc[j][e] * scale_log2;
+          sc[j][e] = x;
+          if (live) mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = hopper::exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = slot0 + 8 * j + 2 * t4 + (e & 1) < end;
+          const float p = live ? hopper::exp2_approx(sc[j][e] - m[e >> 1]) : 0.f;
+          sc[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kDt; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
+      const uint32_t pa[4] = {pack2(sc[0][0], sc[0][1]), pack2(sc[0][2], sc[0][3]),
+                              pack2(sc[1][0], sc[1][1]), pack2(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t b[4];   // {b0, b1} of dims [16 dp, 16 dp + 8), then of the next 8
+        ldmatrix_x4_trans(b, vt + ((mi & 1) * 8 + rr) * kLd + dp * 16 + (mi >> 1) * 8);
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  float* s_acc = reinterpret_cast<float*>(smem_raw);   // [kWarps][16][kD]
+  float* s_m = s_acc + kWarps * 16 * kD;               // [kWarps][16]
+  float* s_l = s_m + kWarps * 16;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < kDt; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s_acc[(warp * 16 + gq + 8 * (e >> 1)) * kD + 8 * j + 2 * t4 + (e & 1)] = o[j][e];
+    }
+  }
+  if (t4 == 0) {
+    s_m[warp * 16 + gq] = m[0];
+    s_m[warp * 16 + gq + 8] = m[1];
+    s_l[warp * 16 + gq] = l[0];
+    s_l[warp * 16 + gq + 8] = l[1];
+  }
+  __syncthreads();
+  merge_workers<kWarps, 16, kD>(s_acc, s_m, s_l, part_ml, part_acc, part0, g, dv, splits);
 }
 
-template <typename T, int kG>
-int launch(const void* q, const void* k, const void* v, const int* n_valid, void* o, int b,
-           int s, int h, int kh, int dh, int dv, long long q_sb, long long q_sh,
-           long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, float scale, cudaStream_t stream) {
-  const int g = h / kh;
-  const size_t smem = static_cast<size_t>(kWarps) * g * (kDMax + 2) * sizeof(float);
-  auto kernel = decode_kernel<T, kG>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(kh, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), n_valid,
-      static_cast<T*>(o), s, h, kh, dh, dv, g, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-      v_sh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
+// o[b, h] = sum over splits of acc 2^(m - M) / sum of l 2^(m - M), one block
+// per (b, h), one thread per output dim. Launched to overlap the split pass's
+// tail (programmatic dependent launch): it waits for the partials, then loads
+// each thread's first kPre partials at once, before the weights are known.
+constexpr int kPre = 16;
 
 template <typename T>
-int launch_for_groups(const void* q, const void* k, const void* v, const int* n_valid, void* o,
-                      int b, int s, int h, int kh, int dh, int dv, long long q_sb,
-                      long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                      long long v_sb, long long v_ss, long long v_sh, float scale,
-                      cudaStream_t st) {
-  const int g = h / kh;
-#define REPRO_DECODE_LAUNCH(G)                                                              \
-  return launch<T, G>(q, k, v, n_valid, o, b, s, h, kh, dh, dv, q_sb, q_sh, k_sb, k_ss, \
-                      k_sh, v_sb, v_ss, v_sh, scale, st)
-  if (g <= 1) REPRO_DECODE_LAUNCH(1);
-  if (g <= 2) REPRO_DECODE_LAUNCH(2);
-  if (g <= 4) REPRO_DECODE_LAUNCH(4);
-  if (g <= 8) REPRO_DECODE_LAUNCH(8);
-  if (g <= 16) REPRO_DECODE_LAUNCH(16);
-#undef REPRO_DECODE_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                      T* __restrict__ o, int h, int dv, int splits) {
+  extern __shared__ float sm_ml[];    // [splits][2]: (m, l), then (m, weight)
+  __shared__ float total[2];          // M, 1 / L
+  hopper::grid_wait();
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * h + blockIdx.x;
+  const int d = threadIdx.x;          // dv <= kThreads
+  const float* acc = part_acc + row * splits * dv + d;
+  float pre[kPre];
+#pragma unroll
+  for (int i = 0; i < kPre; ++i) pre[i] = d < dv && i < splits ? acc[i * dv] : 0.f;
+  for (int i = threadIdx.x; i < 2 * splits; i += kThreads) sm_ml[i] = part_ml[2 * row * splits + i];
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float mx = kNegInf;
+    for (int sp = threadIdx.x; sp < splits; sp += 32) mx = fmaxf(mx, sm_ml[2 * sp]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float den = 0.f;
+    for (int sp = threadIdx.x; sp < splits; sp += 32) {
+      den = fmaf(sm_ml[2 * sp + 1], hopper::exp2_approx(sm_ml[2 * sp] - mx), den);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) den += __shfl_xor_sync(0xffffffffu, den, off);
+    if (threadIdx.x == 0) {
+      total[0] = mx;
+      total[1] = 1.f / fmaxf(den, 1e-30f);
+    }
+  }
+  __syncthreads();
+  for (int sp = threadIdx.x; sp < splits; sp += kThreads) {
+    sm_ml[2 * sp + 1] = hopper::exp2_approx(sm_ml[2 * sp] - total[0]) * total[1];
+  }
+  __syncthreads();
+  if (d >= dv) return;
+  float num = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPre; ++i) num = fmaf(pre[i], i < splits ? sm_ml[2 * i + 1] : 0.f, num);
+  for (int sp = kPre; sp < splits; ++sp) num = fmaf(acc[sp * dv], sm_ml[2 * sp + 1], num);
+  o[row * dv + d] = Elem<T>::from_float(num);
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* n_valid;
+  void* o;
+  float* part_ml;
+  float* part_acc;
+  int b, s, h, kh, dh, dv, splits, chunk;
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float scale;
+};
+
+template <typename T>
+int launch_combine(const Args& a, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.h, a.b);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 2 * a.splits * sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>, a.part_ml,
+                                             a.part_acc, static_cast<T*>(a.o), a.h, a.dv,
+                                             a.splits));
+}
+
+int launch_f32(const Args& a, cudaStream_t stream) {
+  constexpr size_t kTiles = 2ull * kStages * kF32Rows * kDMax * sizeof(float);
+  constexpr size_t kMerge = (static_cast<size_t>(kWarps) * kGMax * kDMax + 2 * kWarps * kGMax) * 4;
+  constexpr size_t kSmem = kTiles > kMerge ? kTiles : kMerge;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      decode_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  decode_f32_kernel<<<dim3(a.kh, a.b, a.splits), kThreads, kSmem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.n_valid, a.part_ml, a.part_acc, a.s, a.h, a.dh, a.dv,
+      a.h / a.kh, a.splits, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
+      a.v_sh, a.scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? static_cast<int>(err) : launch_combine<float>(a, stream);
+}
+
+template <int kD>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr size_t kTiles = 2ull * kStages * kMmaRows * (kD + 8) * sizeof(bf16);
+  constexpr size_t kMerge = (static_cast<size_t>(kWarps) * 16 * kD + 2 * kWarps * 16) * 4;
+  constexpr size_t kSmem = kTiles > kMerge ? kTiles : kMerge;
+  auto kernel = decode_mma_kernel<kD>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  kernel<<<dim3(a.kh, a.b, a.splits), kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.n_valid, a.part_ml, a.part_acc, a.s, a.h, a.dh, a.dv,
+      a.h / a.kh, a.splits, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
+      a.v_sh, a.scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? static_cast<int>(err) : launch_combine<bf16>(a, stream);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// Returns cudaGetLastError() after the launch (0 on success). Strides are in
-// elements; the last dimension of q and the caches is dense; n_valid is a
-// device array of B int32; o is a dense (B,H,Dv) tensor. The caller
-// guarantees 1 <= Dh, Dv <= 128, H % KH == 0 and H / KH <= 16.
+// Launches the split pass and the merge on `stream`; returns
+// cudaGetLastError() after them (0 on success). Strides are in elements; the
+// last dimension of q and the caches is dense; the caches' base addresses and
+// strides are multiples of 16 bytes; n_valid is a device array of B
+// int32; o is a dense (B,H,Dv) tensor; scratch is fp32 of B*H*splits*(Dv+2)
+// elements; splits * chunk >= S. The caller guarantees 1 <= Dh, Dv <= 128,
+// H % KH == 0 and H / KH <= 16.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                    const void* n_valid, void* o, int b, int s, int h, int kh,
-                                    int dh, int dv, long long q_sb, long long q_sh,
-                                    long long k_sb, long long k_ss, long long k_sh,
-                                    long long v_sb, long long v_ss, long long v_sh, float scale,
-                                    void* stream) {
+                                    const void* n_valid, void* o, void* scratch, int b, int s,
+                                    int h, int kh, int dh, int dv, int splits, int chunk,
+                                    long long q_sb, long long q_sh, long long k_sb,
+                                    long long k_ss, long long k_sh, long long v_sb,
+                                    long long v_ss, long long v_sh, float scale, void* stream) {
   using namespace repro_torch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* nv = static_cast<const int*>(n_valid);
-  if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0 || h / kh > 16) {
+  if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0 || h / kh > kGMax ||
+      splits < 1 || static_cast<long long>(splits) * chunk < s) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == kFloat32) {
-    return launch_for_groups<float>(q, k, v, nv, o, b, s, h, kh, dh, dv, q_sb, q_sh, k_sb,
-                                    k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-  }
-  if (dtype == kBFloat16) {
-    return launch_for_groups<__nv_bfloat16>(q, k, v, nv, o, b, s, h, kh, dh, dv, q_sb, q_sh,
-                                            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-  }
+  float* part_ml = static_cast<float*>(scratch);
+  Args a{q, k, v, static_cast<const int*>(n_valid), o, part_ml,
+         part_ml + 2ll * b * h * splits, b, s, h, kh, dh, dv, splits, chunk, q_sb, q_sh,
+         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
+  if (dtype == kFloat32) return launch_f32(a, st);
+  if (dtype == kBFloat16) return dh > 64 || dv > 64 ? launch_bf16<128>(a, st) : launch_bf16<64>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

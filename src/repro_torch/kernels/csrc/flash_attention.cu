@@ -13,25 +13,25 @@
 // TFLOP/s), not memory.
 //
 // Design, common to both element types:
-//   * one block per (64-row query tile, head, batch); the TPU kernel's
-//     sequential kv grid axis becomes a loop inside the block, and its VMEM
-//     scratch (running max m, sum l, accumulator) fp32 registers;
-//   * K and V tiles are staged in shared memory, zero-padded past Dh and Dv;
+//   * the TPU kernel's sequential kv grid axis becomes a loop inside the
+//     block, and its VMEM scratch (running max m, sum l, accumulator) fp32
+//     registers;
 //   * kv tiles wholly above the causal diagonal or wholly outside the sliding
 //     window are not visited (the TPU kernel's pl.when skip);
 //   * q, k and v are read through their strides in the (B,S,H,D) layout, so
 //     the caller makes no transposes; only the last dimension must be dense.
-// bf16 (the serving path) takes the tensor cores: 4 warps of 16 query rows
-// each run both products as mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-// the scores' accumulator fragments become the probabilities' operand
-// fragments in registers, with the probabilities rounded to bf16 for the
-// second product, as FlashAttention-2 does. Shared-memory rows are padded by
-// 16 bytes so both products read them without bank conflicts. It does not
-// yet use wgmma, TMA or a pipeline of tiles in flight: loads and products of
-// a tile do not overlap. fp32 takes scalar FMAs: 4 threads share a query row,
-// each holding a quarter of the row's q and accumulator, reading each kv row
-// as 16-byte packs that a warp's 8 rows share (broadcasts, no conflicts).
+// bf16 (the serving and training path) takes Hopper's tensor cores as
+// FlashAttention-3 does (flash_fwd_wgmma_kernel below): a persistent block
+// per SM walks the query tiles; a producer warp streams K and V tiles by TMA
+// through a ring of mbarrier-guarded stages, and two consumer warpgroups of
+// 64 query rows each run both products as wgmma, the probabilities passed
+// from registers to the second product.
+// fp32 takes scalar FMAs (one block per 64-row query tile): 4 threads share a
+// query row, each holding a quarter of the row's q and accumulator, reading
+// each kv row as 16-byte packs that a warp's 8 rows share (broadcasts, no
+// conflicts).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -195,199 +195,356 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16: both products on the tensor cores, mma.sync m16n8k16
+// bf16: TMA-fed tiles and warpgroup products (FlashAttention-3's shape)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = kBlockQ / 16;      // 16 query rows per warp
-constexpr int kMmaThreads = kMmaWarps * 32;  // 128
-constexpr int kMmaBlockK = 64;               // kv rows per tile
-constexpr int kLd = kDMax + 8;               // smem row stride in elements: +16 bytes
+constexpr int kFaBlockM = 128;    // query rows per block: two consumer warpgroups of 64
+constexpr int kFaBlockN = 128;    // kv rows per tile
+constexpr int kFaStages = 2;      // K/V tiles in the ring
+constexpr int kFaThreads = 384;   // one producer warpgroup, two consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Fragment layouts of m16n8k16 (PTX ISA), with g = lane / 4 and t = lane % 4:
-//   A regs {0,1,2,3} hold rows {g, g+8, g, g+8}, columns {2t, 2t, 2t+8, 2t+8} (+0, +1);
-//   B regs {0,1} hold k rows {2t, 2t+8} (+0, +1) of column g;
-//   C values {0,1,2,3} sit at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int sq, int skv, int h,
-                     int kh, int dh, int dv, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                     int64_t v_sh, int causal, int window, float scale, bool kvec, bool vvec) {
-  constexpr int kSteps = kDMax / 16;     // k-steps of the score product
-  constexpr int kNTiles = kMmaBlockK / 8;  // 8-column tiles of a score tile
-  constexpr int kDTiles = kDMax / 8;     // 8-column tiles of the output
-  __shared__ __align__(16) bf16 ks[kMmaBlockK][kLd];
-  __shared__ __align__(16) bf16 vs[kMmaBlockK][kLd];
+// Every sub-tile is rows x 64 bf16 (128-byte rows, the 128-byte swizzle's
+// width) and starts 1024-byte aligned, as the wgmma descriptors assume.
+template <int kD>
+struct alignas(1024) FaShared {
+  bf16 q[2][kD / 64][64 * 64];                  // [warpgroup][d chunk][64 rows x 64]
+  bf16 k[kFaStages][kD / 64][kFaBlockN * 64];   // [stage][d chunk][kv rows x 64]
+  bf16 v[kFaStages][kD / 64][kFaBlockN * 64];
+  uint64_t q_full;
+  uint64_t q_empty;              // both consumers have their last scores of the tile
+  uint64_t k_full[kFaStages];
+  uint64_t v_full[kFaStages];
+  uint64_t k_empty[kFaStages];   // both consumers are done with the K stage
+  uint64_t v_empty[kFaStages];
+};
 
-  const int qt = blockIdx.x;
-  const int hi = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int kvh = hi / (h / kh);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = qt * kBlockQ;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int nsteps = (dh + 15) / 16;
-  const int ndtiles = (dv + 7) / 8;
+// One 128-row query tile of one (head, batch): the kv tiles it visits.
+struct FaWork {
+  int q0, hi, bi, first, ntiles;
+};
 
-  uint32_t qf[kSteps][4];
-  const bf16* qb = q + bi * q_sb + hi * q_sh;
-#pragma unroll
-  for (int st = 0; st < kSteps; ++st) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rows[r & 1];
-      const int c = st * 16 + 2 * t + (r >= 2 ? 8 : 0);
-      bf16 e0 = __float2bfloat16(0.f);
-      bf16 e1 = e0;
-      if (row < sq) {
-        const bf16* p = qb + row * q_ss;
-        if (c < dh) e0 = p[c];
-        if (c + 1 < dh) e1 = p[c + 1];
-      }
-      qf[st][r] = pack2(e0, e1);
-    }
-  }
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-
+// Work item `item` of nqt * h * b: query tiles last (heaviest, when causal)
+// first, heads innermost so that blocks at work together share kv heads.
+__device__ __forceinline__ FaWork fa_work(int item, int nqt, int h, int b, int skv,
+                                          int causal, int window) {
+  FaWork w;
+  w.q0 = (nqt - 1 - item / (h * b)) * kFaBlockM;
+  w.hi = item % h;
+  w.bi = (item / h) % b;
   int kv_begin = 0;
   int kv_end = skv;
-  if (causal) kv_end = min(skv, q0 + kBlockQ);
-  if (window > 0) kv_begin = max(0, q0 - window + 1);
-  const bf16* kb = k + bi * k_sb + kvh * k_sh;
-  const bf16* vb = v + bi * v_sb + kvh * v_sh;
+  if (causal) kv_end = min(skv, w.q0 + kFaBlockM);
+  if (window > 0) kv_begin = max(0, w.q0 - window + 1);
+  w.first = kv_begin / kFaBlockN;
+  w.ntiles = kv_end > kv_begin ? (kv_end + kFaBlockN - 1) / kFaBlockN - w.first : 0;
+  return w;
+}
 
-  for (int kv0 = (kv_begin / kMmaBlockK) * kMmaBlockK; kv0 < kv_end; kv0 += kMmaBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = tid; idx < kMmaBlockK * (kDMax / 8); idx += kMmaThreads) {
-      const int r = idx / (kDMax / 8);
-      const int c = (idx % (kDMax / 8)) * 8;
-      const int kv = kv0 + r;
-      const bool in = kv < skv;
-      load8(&ks[r][c], kb + kv * k_ss, c, dh, in, kvec);
-      load8(&vs[r][c], vb + kv * v_ss, c, dv, in, vvec);
-    }
-    __syncthreads();
+// The item of round `round` for this block: the rounds snake over the blocks
+// (block j takes item j of even rounds and item G - 1 - j of odd ones), so
+// the heavy tiles of the first rounds and the light ones of the last even out.
+__device__ __forceinline__ int fa_item(int round) {
+  const int base = round * gridDim.x;
+  return (round & 1) ? base + gridDim.x - 1 - blockIdx.x : base + blockIdx.x;
+}
 
-    // scores: s[nt] is the 16x8 tile of kv columns [8 nt, 8 nt + 8)
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const bf16* krow = &ks[nt * 8 + g][2 * t];
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        if (st < nsteps) {
-          mma_bf16(s[nt], qf[st], *reinterpret_cast<const uint32_t*>(krow + st * 16),
-                   *reinterpret_cast<const uint32_t*>(krow + st * 16 + 8));
-        }
-      }
-    }
+// Persistent: one block per SM walks query tiles (fa_item). Warpgroup 0 is
+// the producer: one thread loads each tile's Q once it is free and streams K
+// and V tiles through a 2-stage ring by TMA, each stage's K and V guarded by
+// full (bytes landed) and empty (both consumers done) mbarriers; the ring and
+// its phases run on across tiles, so the next tile's loads overlap this
+// tile's last products and its epilogue. Warpgroups 1 and 2 each own 64 query
+// rows: S = Q K^T by wgmma from shared memory, the online softmax in fp32
+// registers (base 2), then O += P V by wgmma with P from registers and V read
+// transposed (MN-major) from shared memory; the scores of one kv tile and P V
+// of the one before are in flight together. K and V stages are freed
+// separately (K once its scores are in, V once its product is), so the
+// producer runs two kv tiles ahead. kD is the head dim padded to 64 or 128;
+// TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on kv
+// tiles that a diagonal, a window edge or the ragged end cuts.
+template <int kD>
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       float* __restrict__ lse, int b, int sq, int skv, int h, int kh, int dv,
+                       int causal, int window, float scale_log2, int nqt) {
+  constexpr int kChunks = kD / 64;
+  constexpr int kSteps = kD / 16;                      // k-steps of S = Q K^T
+  constexpr uint32_t kQBytes = 2 * kChunks * 64 * 128;
+  constexpr uint32_t kKvBytes = kChunks * kFaBlockN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  FaShared<kD>& sm = *reinterpret_cast<FaShared<kD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int items = nqt * h * b;
+  const int group = h / kh;
 
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = rows[e >> 1];
-        const int kv = kv0 + nt * 8 + 2 * t + (e & 1);
-        const bool live =
-            kv < skv && (!causal || kv <= qpos) && (window <= 0 || kv > qpos - window);
-        s[nt][e] = live ? s[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, 2 * 128);
+    for (int st = 0; st < kFaStages; ++st) {
+      hopper::mbar_init(&sm.k_full[st], 1);
+      hopper::mbar_init(&sm.v_full[st], 1);
+      hopper::mbar_init(&sm.k_empty[st], 2 * 128);
+      hopper::mbar_init(&sm.v_empty[st], 2 * 128);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // the four threads of a row group end with the same maximum
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float corr = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= corr;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        acc[dt][2 * r] *= corr;
-        acc[dt][2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += s[nt][e];
-      }
-    }
-
-    // output += P V: the score tiles 2kk and 2kk+1 are the A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < kMmaBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
-                              pack2(s[2 * kk][2], s[2 * kk][3]),
-                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int vr = kk * 16 + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        if (dt < ndtiles) {
-          const int col = dt * 8 + g;
-          mma_bf16(acc[dt], pa, pack2(vs[vr][col], vs[vr + 1][col]),
-                   pack2(vs[vr + 8][col], vs[vr + 9][col]));
-        }
-      }
-    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer warpgroup ----------------
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      int tile = 0;   // kv tiles loaded so far: the ring's position
+      int n = 0;      // query tiles so far
+      for (int round = 0; round * static_cast<int>(gridDim.x) < items; ++round) {
+        const int item = fa_item(round);
+        if (item >= items) continue;
+        const FaWork w = fa_work(item, nqt, h, b, skv, causal, window);
+        const int kvh = w.hi / group;
+        hopper::mbar_wait(&sm.q_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.q_full, kQBytes);
+        for (int wg = 0; wg < 2; ++wg) {
+          for (int c = 0; c < kChunks; ++c) {
+            hopper::tma_load_4d(sm.q[wg][c], &tq, &sm.q_full, c * 64, w.q0 + wg * 64, w.hi,
+                                w.bi);
+          }
+        }
+        for (int it = 0; it < w.ntiles; ++it, ++tile) {
+          const int st = tile % kFaStages;
+          const uint32_t phase = (tile / kFaStages) & 1;
+          const int kv0 = (w.first + it) * kFaBlockN;
+          hopper::mbar_wait(&sm.k_empty[st], phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&sm.k_full[st], kKvBytes);
+          for (int c = 0; c < kChunks; ++c) {
+            hopper::tma_load_4d(sm.k[st][c], &tk, &sm.k_full[st], c * 64, kv0, kvh, w.bi);
+          }
+          hopper::mbar_wait(&sm.v_empty[st], phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&sm.v_full[st], kKvBytes);
+          for (int c = 0; c < kChunks; ++c) {
+            hopper::tma_load_4d(sm.v[st][c], &tv, &sm.v_full[st], c * 64, kv0, kvh, w.bi);
+          }
+        }
+        ++n;
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    hopper::reg_alloc<232>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int quad = lane % 4;
+    float acc[kD / 2];                                  // O: 64 x kD over the warpgroup
+    float s[kFaBlockN / 2];                             // S: 64 x 128 over the warpgroup
+    uint32_t pa[kFaBlockN / 16][4];                     // P of the previous tile, bf16
+    float m[2];
+    float l[2];    // this thread's share of each row's sum
+    float corr[2];
+    int r0 = 0;    // first query row of this warpgroup in the current tile
+    int rows[2] = {0, 0};
+    int tile = 0;  // kv tiles consumed before the current query tile
+#pragma unroll
+    for (int i = 0; i < kFaBlockN / 2; ++i) s[i] = 0.f;
+
+    // S = Q K^T of kv tile `it` into s (issued, not waited for)
+    auto issue_scores = [&](int it) {
+      const int st = (tile + it) % kFaStages;
+      hopper::mbar_wait(&sm.k_full[st], ((tile + it) / kFaStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint64_t da = hopper::sw128_desc(&sm.q[wg][kk / 4][(kk % 4) * 16], 16, 1024);
+        const uint64_t db = hopper::sw128_desc(&sm.k[st][kk / 4][(kk % 4) * 16], 16, 1024);
+        hopper::wgmma_ss_m64n128k16(s, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // O += P V of kv tile `it` (issued, not waited for)
+    auto issue_pv = [&](int it) {
+      const int st = (tile + it) % kFaStages;
+      hopper::mbar_wait(&sm.v_full[st], ((tile + it) / kFaStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < kFaBlockN / 16; ++kk) {
+        // 16 kv rows of V (2048 bytes) per k-step; the d chunks lie kFaBlockN x 128 B apart
+        const uint64_t db =
+            hopper::sw128_desc(&sm.v[st][0][kk * 16 * 64], kFaBlockN * 128, 1024);
+        if constexpr (kD == 128) {
+          hopper::wgmma_rs_m64n128k16(acc, pa[kk], db);
+        } else {
+          hopper::wgmma_rs_m64n64k16(acc, pa[kk], db);
+        }
+      }
+      hopper::wgmma_commit();
+    };
+    // The online softmax of the scores of kv tile kv0 in s: s becomes P
+    // (fp32), m and l move on, corr is the factor the output has to take.
+    auto softmax = [&](int kv0) {
+      // scores in base 2; masks only where this tile cuts them for our rows
+      const bool cut = kv0 + kFaBlockN > skv || (causal && kv0 + kFaBlockN - 1 > r0) ||
+                       (window > 0 && kv0 <= r0 + 63 - window);
+      float mx[2] = {m[0], m[1]};
+      if (cut) {
+#pragma unroll
+        for (int i = 0; i < kFaBlockN / 2; ++i) {
+          const int kv = kv0 + (i >> 2) * 8 + 2 * quad + (i & 1);
+          const int qpos = rows[(i >> 1) & 1];
+          const bool live = (kv < skv) & (!causal | (kv <= qpos)) &
+                            ((window <= 0) | (kv > qpos - window));
+          s[i] = live ? s[i] * scale_log2 : kNegInf;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kFaBlockN / 2; ++i) {
+          s[i] *= scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = hopper::exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kFaBlockN / 2; ++i) {
+        s[i] = hopper::exp2_approx(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+      }
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kFaBlockN / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pa[kk][j] = pack2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+      }
+    };
+
+    int n = 0;
+    for (int round = 0; round * static_cast<int>(gridDim.x) < items; ++round) {
+      const int item = fa_item(round);
+      if (item >= items) continue;
+      const FaWork w = fa_work(item, nqt, h, b, skv, causal, window);
+      r0 = w.q0 + wg * 64;
+      rows[0] = r0 + (t / 32) * 16 + lane / 4;
+      rows[1] = rows[0] + 8;
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+      hopper::mbar_wait(&sm.q_full, n & 1);
+
+      // Pipelined as FlashAttention-3 does inside a warpgroup: the scores of
+      // kv tile it and P V of kv tile it - 1 are in flight together, and the
+      // softmax of tile it runs while P V finishes.
+      if (w.ntiles == 0) hopper::mbar_arrive(&sm.q_empty);
+      if (w.ntiles > 0) {
+        hopper::fence_regs(s);
+        hopper::wgmma_fence();
+        issue_scores(0);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::mbar_arrive(&sm.k_empty[tile % kFaStages]);
+        if (w.ntiles == 1) hopper::mbar_arrive(&sm.q_empty);
+        softmax(w.first * kFaBlockN);
+        pack_p();
+      }
+      for (int it = 1; it < w.ntiles; ++it) {
+        hopper::fence_regs(s);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        issue_scores(it);
+        issue_pv(it - 1);
+        hopper::wgmma_wait<1>();   // the scores of kv tile it
+        hopper::fence_regs(s);
+        hopper::mbar_arrive(&sm.k_empty[(tile + it) % kFaStages]);
+        if (it == w.ntiles - 1) hopper::mbar_arrive(&sm.q_empty);
+        softmax((w.first + it) * kFaBlockN);
+        hopper::wgmma_wait<0>();   // P V of kv tile it - 1
+        hopper::fence_regs(acc);
+        hopper::keep_regs(pa);
+        hopper::mbar_arrive(&sm.v_empty[(tile + it - 1) % kFaStages]);
+#pragma unroll
+        for (int i = 0; i < kD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        pack_p();
+      }
+      if (w.ntiles > 0) {
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        issue_pv(w.ntiles - 1);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::keep_regs(pa);
+        hopper::mbar_arrive(&sm.v_empty[(tile + w.ntiles - 1) % kFaStages]);
+      }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (rows[r] >= sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    if (lse != nullptr && t == 0) {
-      lse[(static_cast<int64_t>(bi) * h + hi) * sq + rows[r]] = m[r] + logf(denom);
-    }
-    bf16* orow = o + ((static_cast<int64_t>(bi) * sq + rows[r]) * h + hi) * dv;
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        if (rows[r] >= sq) continue;
+        const float denom = fmaxf(l[r], 1e-30f);
+        if (lse != nullptr && quad == 0) {
+          lse[(static_cast<int64_t>(w.bi) * h + w.hi) * sq + rows[r]] = m[r] * kLn2 + logf(denom);
+        }
+        const float inv = 1.f / denom;
+        bf16* orow = o + ((static_cast<int64_t>(w.bi) * sq + rows[r]) * h + w.hi) * dv;
 #pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = dt * 8 + 2 * t + e;
-        if (d < dv) orow[d] = __float2bfloat16(acc[dt][2 * r + e] / denom);
+        for (int j = 0; j < kD / 8; ++j) {
+          const int d = j * 8 + 2 * quad;
+          const float a0 = acc[4 * j + 2 * r] * inv;
+          const float a1 = acc[4 * j + 2 * r + 1] * inv;
+          if (d + 1 < dv && dv % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(a0, a1);
+          } else {
+            if (d < dv) orow[d] = __float2bfloat16(a0);
+            if (d + 1 < dv) orow[d + 1] = __float2bfloat16(a1);
+          }
+        }
       }
+      tile += w.ntiles;
+      ++n;
     }
   }
 }
 
-bool aligned16(const void* p, long long sb, long long ss, long long sh) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
-         sh % 8 == 0;
-}
-
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-               int sq, int skv,
-               int h, int kh, int dh, int dv, long long q_sb, long long q_ss, long long q_sh,
-               long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-               long long v_sh, int causal, int window, float scale, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
-  flash_fwd_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, causal, window, scale, aligned16(k, k_sb, k_ss, k_sh),
-      aligned16(v, v_sb, v_ss, v_sh));
+template <int kD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                 int sq, int skv, int h, int kh, int dh, int dv, long long q_sb, long long q_ss,
+                 long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                 long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, q_sb, q_ss, q_sh, 64) ||
+      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, k_sb, k_ss, k_sh, kFaBlockN) ||
+      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, v_sb, v_ss, v_sh, kFaBlockN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = static_cast<int>(sizeof(FaShared<kD>)) + 1024;
+  auto kernel = flash_fwd_wgmma_kernel<kD>;
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  static int sms = 0;   // one kind of card per process
+  if (sms == 0) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int nqt = (sq + kFaBlockM - 1) / kFaBlockM;
+  const int blocks = min(nqt * h * b, sms);   // one block per SM, walking the tiles
+  kernel<<<blocks, kFaThreads, kSmem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, b, sq,
+                                                skv, h, kh, dv, causal, window,
+                                                scale * kLog2e, nqt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,7 +553,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // Returns cudaGetLastError() after the launch (0 on success). Strides are in
 // elements; the last dimension of q, k and v is dense; o is a dense
-// (B,Sq,H,Dv) tensor. lse, when not null, is a dense fp32 (B,H,Sq) tensor that
+// (B,Sq,H,Dv) tensor. bf16 q, k and v must have 16-byte aligned bases and
+// strides (TMA describes them; the wrapper pads inputs that are not), else the
+// call returns cudaErrorInvalidValue without a launch. lse, when not null, is a dense fp32 (B,H,Sq) tensor that
 // receives each row's log-sum-exp of its scaled scores (what the backward
 // kernel recomputes the probabilities from); serving passes null. window <= 0
 // means no sliding window. The caller guarantees 1 <= Dh, Dv <= 128 and
@@ -412,15 +571,17 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // Static shared memory per block: 32 KB for fp32 (2 tiles x 32 x 128 x 4 B),
-  // 34 KB for bf16 (2 tiles x 64 x 136 x 2 B), under the 48 KB that needs no opt-in.
+  // fp32: 32 KB of static shared memory per block (2 tiles x 32 x 128 x 4 B).
+  // bf16: 160 KB (Dh, Dv <= 128) or 80 KB (<= 64) of dynamic shared memory.
   if (dtype == kFloat32) {
-    return launch<float, 32>(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb,
-                             k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
+    return launch<float, 32>(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv,
+                             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
+                             window, scale, st);
   }
   if (dtype == kBFloat16) {
-    return launch_mma(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss, q_sh, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
+    auto run = (dh > 64 || dv > 64) ? launch_wgmma<128> : launch_wgmma<64>;
+    return run(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss,
+               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,15 +15,47 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import pad_head_dim, tma_describable
 
 D_MAX = 128
 G_MAX = 16
+SPLIT_TILE = 64        # slots per tile of the bf16 kernel: splits are whole tiles
+BLOCKS_PER_SM = 2      # blocks of the split pass the plan aims for on each SM
+
+
+def decode_plan(s: int, b: int, kh: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk): the cache of ``s`` slots is cut into ``splits``
+    splits of ``chunk`` slots (the last may be shorter), a whole number of
+    64-slot tiles each, so that the (KH, B, splits) grid puts about
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs. Depends on shapes only,
+    never on ``n_valid``, which lives on the card: reading it here would
+    synchronise every decode step."""
+    want = -(-BLOCKS_PER_SM * sms // max(b * kh, 1))
+    per = -(-s // want)
+    chunk = max(1, (per + SPLIT_TILE // 2) // SPLIT_TILE) * SPLIT_TILE
+    return -(-s // chunk), chunk
+
+
+def aligned_caches(k_cache, v_cache):
+    """The caches as the split pass's 16-byte ``cp.async`` copies can read
+    them: themselves when the base and the B, S and KH strides of both are
+    16-byte multiples (``flash_attention.tma_describable``), else the fresh
+    zero-padded copies the flash forward makes (``pad_head_dim``). The kernel
+    is given the original Dh and Dv and never reads the padding."""
+    if tma_describable(k_cache) and tma_describable(v_cache):
+        return k_cache, v_cache
+    return pad_head_dim(k_cache), pad_head_dim(v_cache)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
 def _entry():
     fn = _build.load("decode_attention").decode_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -33,8 +65,11 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     """q: (B,H,Dh); caches: (B,S,KH,Dh) and (B,S,KH,Dv); n_valid: an int, or an
     int tensor of shape () or (B,) on the card -> (B,H,Dv).
 
-    Launches the CUDA kernel on PyTorch's current stream; raises for anything
-    the kernel does not take (CPU tensors included)."""
+    Launches the split pass and the merge of the splits (one C call) on
+    PyTorch's current stream, with fp32 partials in a scratch buffer; raises
+    for anything the kernel does not take (CPU tensors included). Caches the
+    16-byte copies cannot read go to the same kernel as padded copies
+    (``aligned_caches``)."""
     _build.refuse_graph("decode_attention", q, k_cache, v_cache)
     _build.check_tensors("decode_attention", q, k_cache, v_cache)
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.ndim != 4:
@@ -68,10 +103,13 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     if out.numel() == 0:
         return out
     q_sb, q_sh = q.stride()[:2]
+    k_cache, v_cache = aligned_caches(k_cache, v_cache)
+    splits, chunk = decode_plan(s, b, kh, _sm_count(q.device.index))
+    scratch = torch.empty(b * h * splits * (dv + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):   # launch on the tensors' card
         err = _entry()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-                       v_cache.data_ptr(), nv.data_ptr(), out.data_ptr(),
-                       b, s, h, kh, dh, dv, q_sb, q_sh,
+                       v_cache.data_ptr(), nv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                       b, s, h, kh, dh, dv, splits, chunk, q_sb, q_sh,
                        *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
                        _build.stream_handle(q.device))
     if err:

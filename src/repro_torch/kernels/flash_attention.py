@@ -65,6 +65,34 @@ def _check(name, q, k, v, sliding_window):
         raise ValueError(f"{name}: sliding_window {sliding_window} < 1")
 
 
+def tma_describable(t: torch.Tensor) -> bool:
+    """Whether the bf16 forward's TMA loads can read ``t`` (B,S,H,D) where it
+    lies: a 16-byte aligned base, the strides of B, S and H multiples of 16
+    bytes and a dense last dimension."""
+    e = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * e % 16 == 0 for st in t.stride()[:3]))
+
+
+def tma_inputs(q, k, v):
+    """q, k, v as the bf16 forward's TMA loads can read them: the tensors
+    themselves when all three are describable, else fresh dense copies with
+    the head dims zero-padded to a multiple of 8 (16 bytes). Zero dims add
+    nothing to the scores, and the output's padded dims are sliced off; the
+    caller keeps the logit scale of the original Dh."""
+    if all(tma_describable(t) for t in (q, k, v)):
+        return q, k, v
+    return pad_head_dim(q), pad_head_dim(k), pad_head_dim(v)
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """A fresh dense copy of ``t`` with its last dim zero-padded to a multiple
+    of 8 elements (16 bytes in bf16): describable by ``tma_describable``."""
+    out = t.new_zeros((*t.shape[:-1], -(-t.shape[-1] // 8) * 8))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
 def flash_attention(q, k, v, *, causal=True, sliding_window=None, logit_scale=None,
                     return_lse=False):
     """q: (B,Sq,H,Dh); k: (B,Skv,KH,Dh); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv), and
@@ -72,17 +100,23 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=None, logit_scale=No
     (B,H,Sq).
 
     Launches the forward kernel on PyTorch's current stream; raises for
-    anything the kernel does not take (CPU tensors included). Computes values
-    only: ``FlashAttention`` is the differentiable form."""
+    anything the kernel does not take (CPU tensors included). bf16 inputs that
+    TMA cannot describe go to the same kernel as padded copies
+    (``tma_inputs``). Computes values only: ``FlashAttention`` is the
+    differentiable form."""
     _build.refuse_graph("flash_attention", q, k, v)
     _check("flash_attention", q, k, v, sliding_window)
+    scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(q.shape[3])
+    dv_out = v.shape[3]
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_inputs(q, k, v)
     b, sq, h, dh = q.shape
     skv, kh, dv = k.shape[1], k.shape[2], v.shape[3]
-    scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
+        out = out[..., :dv_out]
         return (out, lse) if return_lse else out
     with torch.cuda.device(q.device):   # launch on the tensors' card
         err = _fwd_entry()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -95,6 +129,7 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=None, logit_scale=No
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    out = out[..., :dv_out]
     return (out, lse) if return_lse else out
 
 

@@ -129,6 +129,52 @@ def decode_attention_ref(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     return o.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
 
 
+def decode_split_partials_ref(q, k_cache, v_cache, n_valid, splits, chunk, *,
+                              logit_scale=None):
+    """The split pass of flash-decode as ``csrc/decode_attention.cu`` computes
+    it, written out plainly (the kernel keeps m in base 2, here it is base e):
+    for each split of ``chunk`` slots, the fp32 partial (m, l, acc) of every
+    (b, head). Slots at or past n_valid[b] add
+    nothing, so a split that starts past a positive n_valid[b] holds m =
+    NEG_INF, l = 0, acc = 0; where n_valid[b] <= 0 every slot scores NEG_INF
+    and a split holds m = NEG_INF, l = its slot count, acc = the sum of its V
+    rows. Returns m, l (B,H,splits) and acc (B,H,splits,Dv)."""
+    b, h, dh = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(dh)
+    nv = torch.as_tensor(n_valid, device=q.device).reshape(-1).expand(b)
+    count = torch.where(nv <= 0, s, nv.clamp(max=s))                       # (B,)
+    scores = torch.einsum("bkgd,bskd->bkgs", q.reshape(b, kh, g, dh).float(),
+                          k_cache.float()) * scale
+    scores = torch.where((nv <= 0)[:, None, None, None],
+                         torch.tensor(NEG_INF, device=q.device), scores)
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * chunk, min((sp + 1) * chunk, s)
+        live = (torch.arange(lo, hi, device=q.device)[None, :] < count[:, None])  # (B,n)
+        sc = torch.where(live[:, None, None, :], scores[..., lo:hi],
+                         torch.tensor(NEG_INF, device=q.device))
+        m = sc.max(dim=-1).values
+        p = torch.where(live[:, None, None, :], torch.exp(sc - m[..., None]),
+                        torch.zeros((), device=q.device))
+        ms.append(m.reshape(b, h))
+        ls.append(p.sum(-1).reshape(b, h))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v_cache[:, lo:hi].float())
+                    .reshape(b, h, -1))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, 2)
+
+
+def decode_combine_ref(m, l, acc, dtype):
+    """The merge of the splits' partials (``decode_split_partials_ref``), in
+    fp32: sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M) -> (B,H,Dv) in
+    ``dtype``."""
+    mx = m.max(dim=-1, keepdim=True).values
+    f = torch.exp(m - mx)
+    den = (l * f).sum(-1).clamp_min(1e-30)
+    return ((acc * f[..., None]).sum(2) / den[..., None]).to(dtype)
+
+
 def rwkv_scan_ref(r, k, v, w, u, s0):
     """The RWKV6 recurrence, one step at a time.  r,k,v,w: (B,S,H,N); u:
     (H,N); s0: (B,H,N,N).
