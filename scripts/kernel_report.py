@@ -4,7 +4,7 @@ device time over split sizes.
 
 Run from the repository root on a machine with the CUDA toolkit and a card:
 
-    python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep]
+    python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep] [--train]
 
 For each library NAME of ``repro_torch.kernels._build.KERNELS`` (default:
 ``decode_attention flash_attention``) it builds the library afresh, prints
@@ -17,8 +17,15 @@ the counts of the SASS opcodes that say how it moves data and multiplies:
 ``DIR/NAME.sass``. ``--sweep`` times flash-decode (summed kernel durations in
 a ``torch.profiler`` trace) at the decode shapes of qwen3-1.7b (B=4, 1056
 slots, H=16, KH=8, D=128) and hymba-1.5b (B=4, ring of 1024, H=25, KH=5,
-D=64) over split sizes of 64-256 slots and over n_valid. Checks against the
-plain versions and the timings beside SDPA are ``chip_smoke.py``'s.
+D=64) over split sizes of 64-256 slots and over n_valid. ``--train`` times
+the two training kernels and their library yardsticks at one ring worker's
+training shapes of qwen3-1.7b by device time (a replayed CUDA graph, calls
+queued behind a sleep kernel and the summed kernel durations of a
+``torch.profiler`` trace): the flash backward
+(B=2, S=1024, H=16, KH=8, D=128, causal, bf16) beside SDPA's backward, and
+the fused cross-entropy forward (T=2048, D=2048, V=151936, tied head, bf16)
+beside ``F.cross_entropy(x @ W^T, reduction="none")``. Checks against the
+plain versions are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -78,19 +85,73 @@ def sweep_chunks():
     print("decode chunk sweep " + json.dumps(out))
 
 
+def _device_times(fn, sets):
+    """ms per call of ``fn`` over ``sets``: by events, by a replayed CUDA
+    graph, queued behind a sleep kernel and by the trace's per-kernel sums (a
+    way that fails is reported as not measured, with its error)."""
+    import chip_smoke as cs
+    out = {}
+    for key, timer, reps in (("events_ms", cs._time_ms, 10), ("graph_ms", cs._graph_ms, 5),
+                             ("queued_ms", cs._queued_ms, 10), ("trace_ms", cs._kernel_ms, 5)):
+        try:
+            out[key] = timer(fn, sets, reps)
+        except RuntimeError as e:   # a failed capture or an overlong enqueue
+            out[key] = f"not measured: {str(e)[:200]}"
+    return out
+
+
+def train_yardsticks():
+    """Device ms per call of the flash backward and the fused cross-entropy
+    forward, and of one PyTorch call computing the same function each, at
+    one ring worker's training shapes (``chip_smoke.py``'s inputs)."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.fused_xent import fused_xent
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    out = {}
+    sets, lib = [], []
+    for _ in range(4):
+        q, k, v = cs._flash_inputs(2, 1024, 16, 8, 128, 128, bf16, "bshd", gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        do = cs._rand(o.shape, bf16, gen)
+        sets.append((q, k, v, o, lse, do))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib.append((ot, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
+                                                           retain_graph=True)
+    out["flash_bwd"] = _device_times(flash_attention_bwd, sets)
+    out["sdpa_bwd"] = _device_times(sdpa_bwd, lib)
+    del sets, lib
+    x, w, labels = cs._xent_inputs(2048, 2048, 151936, bf16, "tied", 4, gen)
+    sets = [(x, w, labels)]
+    xent = lambda a, b, c: fused_xent(a, b, c)   # noqa: E731
+    lib_xent = lambda a, b, c: F.cross_entropy(a @ b, c, reduction="none")   # noqa: E731
+    for name, fn in (("fused_xent", xent), ("cross_entropy", lib_xent)):
+        out[name] = _device_times(fn, sets)
+    print("train yardsticks " + json.dumps(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("names", nargs="*", default=["decode_attention", "flash_attention"])
     ap.add_argument("--dump", default=None)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     report(args.names, args.dump)
-    if args.sweep:
+    if args.sweep or args.train:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
+    if args.sweep:
         sweep_chunks()
+    if args.train:
+        train_yardsticks()
     return 0
 
 

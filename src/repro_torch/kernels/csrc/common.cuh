@@ -1,6 +1,6 @@
 // Shared helpers of the kernels: 16-byte loads that widen to fp32, the scalar
 // conversions for the two element types the kernels take, and the bf16
-// tensor-core helpers (mma.sync fragments, zero-padded tile loads).
+// tensor-core helpers (bf16 pair packing, mma.sync fragments).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,18 +78,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Eight elements [c, c+8) of a row into shared memory, zero past d or when the
-// row is out of range (!in); one 16-byte load when the source is aligned for it.
-__device__ __forceinline__ void load8(bf16* dst, const bf16* row, int c, int d, bool in,
-                                      bool vec) {
-  if (in && vec && c + 8 <= d) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(row + c);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[e] = (in && c + e < d) ? row[c + e] : __float2bfloat16(0.f);
-  }
 }
 
 }  // namespace repro_torch

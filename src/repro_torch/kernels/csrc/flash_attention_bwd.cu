@@ -11,29 +11,84 @@
 // fp32 or bf16 in and out, fp32 arithmetic throughout.
 //
 // What bounds it on an H100: at the training shapes (B=2, S=1024, H=16, KH=8,
-// D=128, causal) the function does ~21 GFLOP (five products of the forward's
-// size) against ~25 MB of input and output, so arithmetic bounds it (~22 us on
-// the bf16 tensor cores), not memory.
+// D=128, causal) the function does ~21.5 GFLOP (five products of the forward's
+// size) against ~25 MB of input and output, so the tensor cores bound it
+// (~22 us at 989 TFLOP/s), not memory (~7 us).
 //
-// Design (FlashAttention-2's backward):
-//   * a pre-pass computes D = rowsum(dO * O) per query row;
-//   * one block owns a tile of 32 kv rows of one kv head and loops over the
-//     query heads of its group and over the query tiles that can see the tile,
-//     so dK and dV accumulate in its registers and need no atomics;
+// Design, common to both element types (FlashAttention-2's backward):
+//   * a pre-pass computes D = rowsum(dO * O) per query row (and, for bf16, the
+//     forward's log-sum-exp in base 2), into buffers padded to whole tiles;
+//   * one block owns a tile of kv rows of one kv head and loops over the query
+//     heads of its group and over the query tiles that can see the tile, so dK
+//     and dV accumulate in its registers and need no atomics;
 //   * per query tile it recomputes P = exp(S - lse) from the forward's saved
-//     log-sum-exp, forms dV += P^T dO, dP = dO V^T, dS = P (dP - D), and
-//     dK += scale dS^T Q, all in shared memory and registers;
-//   * dQ += scale dS K goes to an fp32 buffer by atomicAdd (blocks of other kv
-//     tiles add into the same rows), and a last pass casts it to the output.
-// This first version uses scalar FMAs for both element types (tiles held as
-// fp32 in shared memory, rows padded to an odd stride so the column walks are
-// free of bank conflicts); tensor cores are left to a later speed PR.
+//     log-sum-exp and forms dV += P^T dO, dP = dO V^T, dS = P (dP - D),
+//     dK += dS^T Q and dQ += dS K; dQ's partials of the kv tiles are summed in
+//     an fp32 buffer, and a last pass scales and casts it to the output.
+// bf16 (the training path) takes Hopper's tensor cores as FlashAttention-3's
+// backward does (flash_bwd_wgmma_kernel): blocks of 128 kv rows, longest work
+// first under the causal mask; a producer warp loads K and V once by TMA and
+// streams 64-row Q and dO tiles (with their lse and D) through a ring of
+// mbarrier-guarded stages; two consumer warpgroups of 64 kv rows each run all
+// five products as wgmma, kv-major so that no operand needs a transpose in
+// registers: S^T = K Q^T and dP^T = V dO^T from shared memory, P^T and dS^T
+// in registers as the A operands of dV += P^T dO and dK += dS^T Q (dO and Q
+// read MN-major), and dS^T through shared memory as the MN-major A operand of
+// dQ = dS K, each warpgroup taking 64 of dQ's columns. dQ's partial goes to
+// the fp32 buffer as one bulk reduce-add of 16 KB per warpgroup and tile (TMA
+// unit, atomic per element, so the summation order varies between runs).
+// fp32 takes scalar FMAs (one block per 32-row kv tile, tiles held in shared
+// memory, dQ by atomicAdd); no training path runs it.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int kDMax = 128;            // largest Dh and Dv taken
+constexpr int kTileQ = 64;            // rows per query tile; the padding of lse and D
+constexpr float kLog2e = 1.4426950408889634f;
+
+// D[b,h,s] = sum_d dO[b,s,h,d] O[b,s,h,d], one warp per (b, h, s) row of a
+// buffer padded to sq_pad rows a head (pad rows 0); with lse2, also the
+// forward's log-sum-exp times log2(e) there.
+template <typename T>
+__global__ void bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                               const float* __restrict__ lse, float* __restrict__ dsum,
+                               float* __restrict__ lse2, int b, int sq, int sq_pad, int h,
+                               int dv, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t d_sb,
+                               int64_t d_ss, int64_t d_sh) {
+  using E = Elem<T>;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<int64_t>(b) * h * sq_pad) return;
+  const int s = static_cast<int>(row % sq_pad);
+  const int64_t bh = row / sq_pad;
+  if (s >= sq) {
+    if (lane == 0) {
+      dsum[row] = 0.f;
+      if (lse2 != nullptr) lse2[row] = 0.f;
+    }
+    return;
+  }
+  const int hh = static_cast<int>(bh % h);
+  const int bb = static_cast<int>(bh / h);
+  const T* orow = o + bb * o_sb + s * o_ss + hh * o_sh;
+  const T* drow = dout + bb * d_sb + s * d_ss + hh * d_sh;
+  float acc = 0.f;
+  for (int d = lane; d < dv; d += 32) acc += E::to_float(orow[d]) * E::to_float(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    dsum[row] = acc;
+    if (lse2 != nullptr) lse2[row] = lse[bh * sq + s] * kLog2e;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMAs
+// ---------------------------------------------------------------------------
+
 constexpr int kBq = 32;               // query rows per tile
 constexpr int kBk = 32;               // kv rows per block
 constexpr int kThreads = 256;
@@ -44,38 +99,15 @@ constexpr int kPLd = kBk + 1;           // fp32 smem row stride of P and dS
 constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kBk * kLd + 2 * kBq * kLd + 2 * kBq * kPLd + 2 * kBq);
 
-// D[b,h,s] = sum_d dO[b,s,h,d] O[b,s,h,d], one warp per (b, h, s) row.
-template <typename T>
-__global__ void bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                               float* __restrict__ dsum, int b, int sq, int h, int dv,
-                               int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t d_sb,
-                               int64_t d_ss, int64_t d_sh) {
-  using E = Elem<T>;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= static_cast<int64_t>(b) * h * sq) return;
-  const int s = static_cast<int>(row % sq);
-  const int hh = static_cast<int>((row / sq) % h);
-  const int bb = static_cast<int>(row / (static_cast<int64_t>(sq) * h));
-  const T* orow = o + bb * o_sb + s * o_ss + hh * o_sh;
-  const T* drow = dout + bb * d_sb + s * d_ss + hh * d_sh;
-  float acc = 0.f;
-  for (int d = lane; d < dv; d += 32) acc += E::to_float(orow[d]) * E::to_float(drow[d]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) dsum[row] = acc;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ dsum, float* __restrict__ dq_acc, T* __restrict__ dk,
-           T* __restrict__ dvo, int sq, int skv, int h, int kh, int dh, int dv, int dp,
-           int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-           int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t d_sb, int64_t d_ss, int64_t d_sh,
-           int causal, int window, float scale) {
-  using E = Elem<T>;
+bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               float* __restrict__ dq_acc, float* __restrict__ dk, float* __restrict__ dvo,
+               int sq, int sq_pad, int skv, int h, int kh, int dh, int dv, int dp, int64_t q_sb,
+               int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t d_sb, int64_t d_ss,
+               int64_t d_sh, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                 // [kBk][kLd]
   float* vs = ks + kBk * kLd;       // [kBk][kLd]
@@ -101,8 +133,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     float kval = 0.f;
     float vval = 0.f;
     if (kv < skv) {
-      if (d < dh) kval = E::to_float(k[bi * k_sb + kv * k_ss + kvh * k_sh + d]);
-      if (d < dv) vval = E::to_float(v[bi * v_sb + kv * v_ss + kvh * v_sh + d]);
+      if (d < dh) kval = k[bi * k_sb + kv * k_ss + kvh * k_sh + d];
+      if (d < dv) vval = v[bi * v_sb + kv * v_ss + kvh * v_sh + d];
     }
     ks[r * kLd + d] = kval;
     vs[r * kLd + d] = vval;
@@ -132,17 +164,17 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         float qval = 0.f;
         float dval = 0.f;
         if (qp < sq) {
-          if (d < dh) qval = E::to_float(q[bi * q_sb + qp * q_ss + hq * q_sh + d]);
-          if (d < dv) dval = E::to_float(dout[bi * d_sb + qp * d_ss + hq * d_sh + d]);
+          if (d < dh) qval = q[bi * q_sb + qp * q_ss + hq * q_sh + d];
+          if (d < dv) dval = dout[bi * d_sb + qp * d_ss + hq * d_sh + d];
         }
         qs[r * kLd + d] = qval;
         dos[r * kLd + d] = dval;
       }
       if (tid < kBq) {
         const int qp = q0 + tid;
-        const int64_t at = (static_cast<int64_t>(bi) * h + hq) * sq + qp;
-        lses[tid] = qp < sq ? lse[at] : 0.f;
-        dsums[tid] = qp < sq ? dsum[at] : 0.f;
+        const int64_t bh = static_cast<int64_t>(bi) * h + hq;
+        lses[tid] = qp < sq ? lse[bh * sq + qp] : 0.f;
+        dsums[tid] = qp < sq ? dsum[bh * sq_pad + qp] : 0.f;
       }
       __syncthreads();
 
@@ -218,85 +250,487 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
   const int kv = kv0 + row;
   if (kv >= skv) return;
-  T* dkrow = dk + ((static_cast<int64_t>(bi) * skv + kv) * kh + kvh) * dh;
-  T* dvrow = dvo + ((static_cast<int64_t>(bi) * skv + kv) * kh + kvh) * dv;
+  float* dkrow = dk + ((static_cast<int64_t>(bi) * skv + kv) * kh + kvh) * dh;
+  float* dvrow = dvo + ((static_cast<int64_t>(bi) * skv + kv) * kh + kvh) * dv;
 #pragma unroll
   for (int c = 0; c < kPer; ++c) {
     const int d = lane + kLanes * c;
-    if (d < dh) dkrow[d] = E::from_float(dk_acc[c] * scale);
-    if (d < dv) dvrow[d] = E::from_float(dv_acc[c]);
+    if (d < dh) dkrow[d] = dk_acc[c] * scale;
+    if (d < dv) dvrow[d] = dv_acc[c];
   }
 }
 
-template <typename T>
-__global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst, int64_t n) {
+__global__ void cast_f32_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = Elem<T>::from_float(src[i]);
+  if (i < n) dst[i] = src[i];
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const float* lse, float* dsum, float* dq_acc, void* dq, void* dk, void* dv_out, int b,
-           int sq, int skv, int h, int kh, int dh, int dv, const long long* st, int causal,
-           int window, float scale, cudaStream_t stream) {
-  // st: strides of q, k, v, o and dO, three each (batch, sequence, head)
-  const int64_t rows = static_cast<int64_t>(b) * h * sq;
-  bwd_dot_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dsum, b, sq, h, dv, st[9], st[10],
-      st[11], st[12], st[13], st[14]);
+// ---------------------------------------------------------------------------
+// bf16: TMA-fed tiles and warpgroup products (FlashAttention-3's backward)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwN = 128;        // kv rows per block: two consumer warpgroups of 64
+constexpr int kBwStages = 2;     // Q/dO tiles in the ring
+constexpr int kBwThreads = 384;  // one producer warpgroup, two consumer warpgroups
+
+// Every bf16 sub-tile is rows x 64 (128-byte rows, the 128-byte swizzle's
+// width) and starts 1024-byte aligned, as the wgmma descriptors assume.
+template <int kD>
+struct alignas(1024) BwShared {
+  bf16 k[kD / 64][kBwN * 64];                     // [d chunk][kv rows x 64]
+  bf16 v[kD / 64][kBwN * 64];
+  bf16 q[kBwStages][kD / 64][kTileQ * 64];        // [stage][d chunk][q rows x 64]
+  bf16 dout[kBwStages][kD / 64][kTileQ * 64];
+  bf16 ds[2][kBwN * kTileQ];                      // dS^T [kv][q], swizzled, double-buffered
+  float dq[2][kTileQ * 64];                       // [warpgroup] dQ partial, swizzled
+  float lse[kBwStages][kTileQ];                   // log2(e) * lse of the tile's rows
+  float dsum[kBwStages][kTileQ];
+  uint64_t kv_full;
+  uint64_t full[kBwStages];
+  uint64_t empty[kBwStages];   // both consumers are done with the stage
+};
+
+// Elements d and d + 1 of a bf16 row of n, those that lie in it.
+__device__ __forceinline__ void store2(bf16* row, int d, int n, float a0, float a1) {
+  if (d + 1 < n && n % 2 == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(a0, a1);
+  } else {
+    if (d < n) row[d] = __float2bfloat16(a0);
+    if (d + 1 < n) row[d + 1] = __float2bfloat16(a1);
+  }
+}
+
+// One 128-row kv tile of one (kv head, batch), and the query tiles that see it.
+struct BwWork {
+  int kv0, kvh, bi, qt0, nq;
+};
+
+// Work item `item`: kv tiles first in the causal order (tile 0 sees every
+// query tile, so the longest items start first), kv heads innermost.
+__device__ __forceinline__ BwWork bw_work(int item, int kh, int b, int sq, int causal,
+                                          int window) {
+  BwWork w;
+  w.kv0 = (item / (kh * b)) * kBwN;
+  w.kvh = item % kh;
+  w.bi = (item / kh) % b;
+  const int q_begin = causal ? w.kv0 : 0;
+  int q_end = sq;
+  if (window > 0) q_end = min(sq, w.kv0 + kBwN - 1 + window);
+  w.qt0 = q_begin / kTileQ;
+  w.nq = q_end > q_begin ? (q_end + kTileQ - 1) / kTileQ - w.qt0 : 0;
+  return w;
+}
+
+// One block per work item (bw_work). Warpgroup 0 is the producer: one thread
+// loads the item's K and V tiles once and streams the Q and dO tiles of each
+// (query head, query tile) with their lse and D through a 2-stage ring, each
+// stage guarded by a full (bytes landed) and an empty (both consumers done)
+// mbarrier. Warpgroups 1 and 2 each own 64 kv rows and keep dK and dV in
+// fp32 registers over the whole item. kD is the head dim padded to 64 or 128;
+// TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on
+// tiles that a diagonal, a window edge or a ragged end cuts. At kD = 64 the
+// first warpgroup alone computes dQ (64 columns).
+template <int kD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse2, const float* __restrict__ dsum,
+                       float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                       bf16* __restrict__ dvo, int b, int sq, int sq_pad, int skv, int h,
+                       int kh, int dh, int dv, int causal, int window, float scale,
+                       float scale_log2) {
+  constexpr int kChunks = kD / 64;
+  constexpr uint32_t kKvBytes = 2 * kChunks * kBwN * 128;
+  constexpr uint32_t kStageBytes = 2 * kChunks * kTileQ * 128 + 2 * kTileQ * 4;
+  extern __shared__ unsigned char smem_raw[];
+  BwShared<kD>& sm = *reinterpret_cast<BwShared<kD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int group = h / kh;
+  const BwWork w = bw_work(blockIdx.x, kh, b, sq, causal, window);
+  const int iters = group * w.nq;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int st = 0; st < kBwStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer warpgroup ----------------
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0 && iters > 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      hopper::tma_prefetch_map(&tdo);
+      hopper::mbar_arrive_expect_tx(&sm.kv_full, kKvBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        hopper::tma_load_4d(sm.k[c], &tk, &sm.kv_full, c * 64, w.kv0, w.kvh, w.bi);
+        hopper::tma_load_4d(sm.v[c], &tv, &sm.kv_full, c * 64, w.kv0, w.kvh, w.bi);
+      }
+      for (int it = 0; it < iters; ++it) {
+        const int st = it % kBwStages;
+        const int hq = w.kvh * group + it / w.nq;
+        const int q0 = (w.qt0 + it % w.nq) * kTileQ;
+        hopper::mbar_wait(&sm.empty[st], ((it / kBwStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          hopper::tma_load_4d(sm.q[st][c], &tq, &sm.full[st], c * 64, q0, hq, w.bi);
+          hopper::tma_load_4d(sm.dout[st][c], &tdo, &sm.full[st], c * 64, q0, hq, w.bi);
+        }
+        const int64_t row = (static_cast<int64_t>(w.bi) * h + hq) * sq_pad + q0;
+        hopper::bulk_load(sm.lse[st], lse2 + row, kTileQ * 4, &sm.full[st]);
+        hopper::bulk_load(sm.dsum[st], dsum + row, kTileQ * 4, &sm.full[st]);
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    hopper::reg_alloc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int quad = lane % 4;
+    const int rl = (t / 32) * 16 + lane / 4;   // this thread's first row of 64
+    const int kw0 = w.kv0 + 64 * wg;           // first kv row of this warpgroup
+    const bool with_dq = kD == 128 || wg == 0;
+    const int dq_chunk = kD == 128 ? wg : 0;   // dQ's 64 columns of this warpgroup
+    float dkacc[kD / 2];                       // dK: 64 x kD over the warpgroup
+    float dvacc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+    if (iters > 0) hopper::mbar_wait(&sm.kv_full, 0);
+
+    for (int it = 0; it < iters; ++it) {
+      const int st = it % kBwStages;
+      const int hq = w.kvh * group + it / w.nq;
+      const int q0 = (w.qt0 + it % w.nq) * kTileQ;
+      hopper::mbar_wait(&sm.full[st], (it / kBwStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared memory.
+      // The accumulators live for one tile only (the first k-step overwrites
+      // them), so S, dP and dQ never hold registers beside each other.
+      float s[32];    // S^T, then P^T: 64 kv x 64 q
+      float dp[32];   // dP^T, then dS^T
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint64_t da =
+            hopper::sw128_desc(&sm.k[kk / 4][64 * 64 * wg + (kk % 4) * 16], 16, 1024);
+        const uint64_t db = hopper::sw128_desc(&sm.q[st][kk / 4][(kk % 4) * 16], 16, 1024);
+        hopper::wgmma_ss_m64n64k16<0, 0>(s, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint64_t da =
+            hopper::sw128_desc(&sm.v[kk / 4][64 * 64 * wg + (kk % 4) * 16], 16, 1024);
+        const uint64_t db = hopper::sw128_desc(&sm.dout[st][kk / 4][(kk % 4) * 16], 16, 1024);
+        hopper::wgmma_ss_m64n64k16<0, 0>(dp, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+
+      // Value i of a 64 x 64 fragment sits at row rl + 8 ((i >> 1) & 1), column
+      // 8 (i >> 2) + 2 quad + (i & 1).
+      const bool cut = q0 + kTileQ > sq || kw0 + 64 > skv || (causal && q0 < kw0 + 63) ||
+                       (window > 0 && kw0 <= q0 + kTileQ - 1 - window);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][8 * j + 2 * quad]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = hopper::exp2_approx(s[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+          if (cut) {
+            const int kv = kw0 + rl + 8 * (e >> 1);
+            const int qp = q0 + 8 * j + 2 * quad + (e & 1);
+            const bool live = (kv < skv) & (qp < sq) & (!causal | (kv <= qp)) &
+                              ((window <= 0) | (kv > qp - window));
+            p = live ? p : 0.f;
+          }
+          s[i] = p;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(&sm.dsum[st][8 * j + 2 * quad]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dp[i] = s[i] * (dp[i] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      // P^T and dS^T as bf16 A fragments: k-step kk covers q columns 16 kk + [0, 16)
+      uint32_t pa[4][4];
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pa[kk][j] = pack2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+          da[kk][j] = pack2(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: B read MN-major (q rows of d values)
+      hopper::fence_regs(dvacc);
+      hopper::fence_regs(dkacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db =
+            hopper::sw128_desc(&sm.dout[st][0][kk * 16 * 64], kTileQ * 128, 1024);
+        if constexpr (kD == 128) {
+          hopper::wgmma_rs_m64n128k16(dvacc, pa[kk], db);
+        } else {
+          hopper::wgmma_rs_m64n64k16(dvacc, pa[kk], db);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hopper::sw128_desc(&sm.q[st][0][kk * 16 * 64], kTileQ * 128, 1024);
+        if constexpr (kD == 128) {
+          hopper::wgmma_rs_m64n128k16(dkacc, da[kk], db);
+        } else {
+          hopper::wgmma_rs_m64n64k16(dkacc, da[kk], db);
+        }
+      }
+      hopper::wgmma_commit();
+
+      // dS^T to shared memory, [kv][q] rows of 128 bytes in the 128-byte
+      // swizzle (16-byte chunk c of row r at c ^ (r % 8)), for both warpgroups'
+      // dQ; the buffer alternates, so one barrier a tile keeps it safe.
+      unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.ds[it & 1]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 64 * wg + rl + 8 * r;
+          *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
+              da[j >> 1][((j & 1) << 1) | r];
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1, 256);
+
+      // dQ (64 q x 64 d) = dS K over the tile's 128 kv rows: dS^T read as an
+      // MN-major A, K as an MN-major B
+      float dqa[32];  // dQ: 64 q x 64 d
+      if (with_dq) {
+        hopper::fence_regs(dqa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwN / 16; ++kk) {
+          const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBwN * 128, 1024);
+          const uint64_t bk =
+              hopper::sw128_desc(&sm.k[dq_chunk][kk * 16 * 64], kBwN * 128, 1024);
+          hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
+        }
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dvacc);
+      hopper::fence_regs(dkacc);
+      hopper::fence_regs(dqa);
+      hopper::keep_regs(pa);
+      hopper::keep_regs(da);
+      hopper::mbar_arrive(&sm.empty[st]);
+
+      // dQ's partial to the fp32 buffer (B, H, kD/64, sq_pad, 64), rows
+      // swizzled as in shared memory, by one bulk reduce-add
+      if (with_dq) {
+        float* dqs = sm.dq[wg];
+        if (t == 0) hopper::bulk_wait_read<0>();
+        hopper::named_sync(2 + wg, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = rl + 8 * r;
+            *reinterpret_cast<float2*>(&dqs[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
+                make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::named_sync(2 + wg, 128);
+        if (t == 0) {
+          float* dst = dq_acc +
+                       (((static_cast<int64_t>(w.bi) * h + hq) * kChunks + dq_chunk) * sq_pad + q0) *
+                           64;
+          hopper::bulk_reduce_add(dst, dqs, kTileQ * 64 * 4);
+          hopper::bulk_commit();
+        }
+      }
+    }
+    if (with_dq && t == 0) hopper::bulk_wait<0>();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kv = kw0 + rl + 8 * r;
+      if (kv >= skv) continue;
+      const int64_t at = (static_cast<int64_t>(w.bi) * skv + kv) * kh + w.kvh;
+      bf16* dkrow = dk + at * dh;
+      bf16* dvrow = dvo + at * dv;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = j * 8 + 2 * quad;
+        store2(dkrow, d, dh, dkacc[4 * j + 2 * r] * scale, dkacc[4 * j + 2 * r + 1] * scale);
+        store2(dvrow, d, dv, dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dq (B,Sq,H,Dh) bf16 = scale * the (B, H, kD/64, sq_pad, 64) fp32 buffer,
+// un-swizzling each row: a thread takes 8 consecutive d of one row, one
+// 32-byte piece of the buffer (two 16-byte loads) and one 16-byte store.
+__global__ void cast_dq_kernel(const float* __restrict__ src, bf16* __restrict__ dq, int sq,
+                               int sq_pad, int h, int dh, int chunks, float scale, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int groups = (dh + 7) / 8;
+  const int d0 = static_cast<int>(i % groups) * 8;
+  const int64_t r = i / groups;   // row (b, s, head) of dq
+  const int hh = static_cast<int>(r % h);
+  const int s = static_cast<int>((r / h) % sq);
+  const int64_t bb = r / (static_cast<int64_t>(h) * sq);
+  const int col = d0 % 64;
+  const float4* p = reinterpret_cast<const float4*>(
+      src + (((bb * h + hh) * chunks + d0 / 64) * sq_pad + s) * 64 + (((col >> 3) ^ (s & 7)) << 3));
+  const float4 a = p[0];
+  const float4 c = p[1];
+  const float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+  bf16* out = dq + r * dh + d0;
+  if (dh % 8 == 0) {
+    uint4 u;
+    u.x = pack2(v[0] * scale, v[1] * scale);
+    u.y = pack2(v[2] * scale, v[3] * scale);
+    u.z = pack2(v[4] * scale, v[5] * scale);
+    u.w = pack2(v[6] * scale, v[7] * scale);
+    *reinterpret_cast<uint4*>(out) = u;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (d0 + e < dh) out[e] = __float2bfloat16(v[e] * scale);
+    }
+  }
+}
+
+template <int kD>
+int launch_wgmma(const long long* st, const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse2, const float* dsum, float* dq_acc,
+                 void* dq, void* dk, void* dv_out, int b, int sq, int sq_pad, int skv, int h,
+                 int kh, int dh, int dv, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, st[0], st[1], st[2], kTileQ) ||
+      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, st[3], st[4], st[5], kBwN) ||
+      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, st[6], st[7], st[8], kBwN) ||
+      !hopper::encode_bshd(&tdo, dout, b, sq, h, dv, st[12], st[13], st[14], kTileQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = static_cast<int>(sizeof(BwShared<kD>)) + 1024;
+  auto kernel = flash_bwd_wgmma_kernel<kD>;
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int items = (skv + kBwN - 1) / kBwN * kh * b;
+  kernel<<<items, kBwThreads, kSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, dsum, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv_out),
+      b, sq, sq_pad, skv, h, kh, dh, dv, causal, window, scale, scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n = static_cast<int64_t>(b) * sq * h * ((dh + 7) / 8);
+  cast_dq_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(dq), sq, sq_pad, h, dh, kD / 64, scale, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  err = cudaFuncSetAttribute(bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
+int launch_f32(const long long* st, const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* dsum, float* dq_acc, void* dq,
+               void* dk, void* dv_out, int b, int sq, int sq_pad, int skv, int h, int kh,
+               int dh, int dv, int causal, int window, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(bwd_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int dp = dh > dv ? dh : dv;
   const dim3 grid((skv + kBk - 1) / kBk, kh, b);
-  bwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, dsum, dq_acc, static_cast<T*>(dk),
-      static_cast<T*>(dv_out), sq, skv, h, kh, dh, dv, dp, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[12], st[13], st[14], causal, window, scale);
+  bwd_f32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, dq_acc, static_cast<float*>(dk),
+      static_cast<float*>(dv_out), sq, sq_pad, skv, h, kh, dh, dv, dp, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
   const int64_t n = static_cast<int64_t>(b) * sq * h * dh;
-  cast_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
-      dq_acc, static_cast<T*>(dq), n);
+  cast_f32_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<float*>(dq), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// Returns the first CUDA error of the three launches (0 on success). q, k, v,
-// o and dO are read through their strides (elements; the last dimension is
-// dense), given as 15 values: (batch, sequence, head) strides of q, k, v, o and
-// dO in that order. lse (from the forward) and dsum (scratch) are dense fp32
-// (B,H,Sq); dq_acc is a dense fp32 (B,Sq,H,Dh) buffer the caller zeroes; dq,
-// dk and dv are dense outputs in the input type. window <= 0 means no sliding
-// window. The caller guarantees 1 <= Dh, Dv <= 128 and H % KH == 0.
+// Returns the first CUDA error of the launches (0 on success). q, k, v, o and
+// dO are read through their strides (elements; the last dimension is dense),
+// given as 15 values: (batch, sequence, head) strides of q, k, v, o and dO in
+// that order. lse (from the forward) is a dense fp32 (B,H,Sq); dsum and lse2
+// are fp32 scratch of B * H * sq_pad values (sq_pad = Sq rounded up to 64);
+// dq_acc is an fp32 buffer the caller zeroes, of B * H * sq_pad * 128 values;
+// dq, dk and dv are dense outputs in the input type. window <= 0 means no
+// sliding window. bf16 q, k, v and dO must have 16-byte aligned bases and
+// strides (TMA describes them; the wrapper pads inputs that are not), else the
+// call returns cudaErrorInvalidValue without a launch. The caller guarantees
+// 1 <= Dh, Dv <= 128 and H % KH == 0.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
-                                   void* dsum, void* dq_acc, void* dq, void* dk, void* dv_out,
-                                   int b, int sq, int skv, int h, int kh, int dh, int dv,
-                                   const long long* strides, int causal, int window,
+                                   void* dsum, void* lse2, void* dq_acc, void* dq, void* dk,
+                                   void* dv_out, int b, int sq, int skv, int h, int kh, int dh,
+                                   int dv, const long long* strides, int causal, int window,
                                    float scale, void* stream) {
   using namespace repro_torch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0) {
+  if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0 ||
+      (dtype != kFloat32 && dtype != kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int sq_pad = (sq + kTileQ - 1) / kTileQ * kTileQ;
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
+  float* l2 = dtype == kBFloat16 ? static_cast<float*>(lse2) : nullptr;
+  const int64_t rows = static_cast<int64_t>(b) * h * sq_pad;
+  const unsigned dot_blocks = static_cast<unsigned>((rows + 7) / 8);
+  const long long* s = strides;
+  if (dtype == kFloat32) {
+    bwd_dot_kernel<float><<<dot_blocks, 256, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), l, ds, l2, b, sq, sq_pad,
+        h, dv, s[9], s[10], s[11], s[12], s[13], s[14]);
+  } else {
+    bwd_dot_kernel<bf16><<<dot_blocks, 256, 0, st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), l, ds, l2, b, sq, sq_pad,
+        h, dv, s[9], s[10], s[11], s[12], s[13], s[14]);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   float* acc = static_cast<float*>(dq_acc);
   if (dtype == kFloat32) {
-    return launch<float>(q, k, v, o, dout, l, ds, acc, dq, dk, dv_out, b, sq, skv, h, kh, dh,
-                         dv, strides, causal, window, scale, st);
+    return launch_f32(s, q, k, v, dout, l, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh,
+                      dh, dv, causal, window, scale, st);
   }
-  if (dtype == kBFloat16) {
-    return launch<__nv_bfloat16>(q, k, v, o, dout, l, ds, acc, dq, dk, dv_out, b, sq, skv, h,
-                                 kh, dh, dv, strides, causal, window, scale, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto run = (dh > 64 || dv > 64) ? launch_wgmma<128> : launch_wgmma<64>;
+  return run(s, q, k, v, dout, l2, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh, dh, dv,
+             causal, window, scale, st);
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks written as inline PTX: mbarriers, cp.async
-// and TMA copies into shared memory, wgmma descriptors and the warpgroup
-// products the flash forward uses, and register reallocation between
+// Hopper (sm_90a) building blocks written as inline PTX: mbarriers, cp.async,
+// TMA and bulk copies into shared memory, bulk reduce-adds out of it, named
+// barriers, wgmma descriptors and the warpgroup products the flash forward and
+// backward and the fused cross-entropy use, and register reallocation between
 // warpgroups. The tensor maps are encoded on the host through the driver's
 // entry point, found at run time, so no library needs to link libcuda.
 #pragma once
@@ -86,6 +87,62 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// A 2-D box of a tensor map into shared memory, completion on an mbarrier.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory, completion on an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] over `bytes` of fp32, shared -> global, done by the TMA unit
+// as one asynchronous operation (atomic per element); tracked by bulk groups.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most kPending bulk groups still reading their shared-memory source.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// At most kPending bulk groups not yet complete (writes done).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Make this thread's ordinary shared-memory writes visible to the async proxy
+// (wgmma operands, bulk copies out of shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -204,6 +261,51 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, fp32) (+)= A (64 x 16, bf16, shared) * B (16 x 64, bf16,
+// shared). kTA / kTB = 0: K-major (rows along M or N, each holding 16 K
+// values); 1: MN-major (one 128-byte row of M or N values per K index).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// d (64 x 256, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 256,
+// bf16, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24), REPRO_R8(32), REPRO_R8(40),
+        REPRO_R8(48), REPRO_R8(56), REPRO_R8(64), REPRO_R8(72), REPRO_R8(80), REPRO_R8(88),
+        REPRO_R8(96), REPRO_R8(104), REPRO_R8(112), REPRO_R8(120)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
 // shared, MN-major: 16 K rows each holding 128 N values).
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
@@ -285,6 +387,24 @@ inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int s, int h,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 matrix of `rows` rows of `cols` elements, rows `row_stride` elements
+// apart, read in boxes of 64 columns (128 bytes, the 128-byte swizzle's row)
+// by `box_rows` rows, zero past each edge. Returns false if the driver refuses
+// it (a base or row stride not a multiple of 16 bytes).
+inline bool encode_2d(CUtensorMap* map, const void* base, int cols, int rows,
+                      long long row_stride, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

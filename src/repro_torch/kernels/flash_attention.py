@@ -21,6 +21,7 @@ import torch
 from . import _build
 
 D_MAX = 128
+BWD_TILE_Q = 64   # csrc/flash_attention_bwd.cu kTileQ: lse, D and dQ's buffer are padded to it
 
 
 @functools.cache
@@ -36,7 +37,7 @@ def _fwd_entry():
 @functools.cache
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -66,12 +67,13 @@ def _check(name, q, k, v, sliding_window):
 
 
 def tma_describable(t: torch.Tensor) -> bool:
-    """Whether the bf16 forward's TMA loads can read ``t`` (B,S,H,D) where it
-    lies: a 16-byte aligned base, the strides of B, S and H multiples of 16
-    bytes and a dense last dimension."""
+    """Whether the bf16 kernels' TMA loads can read ``t`` ((B,S,H,D), or the
+    (rows, D) operands of the cross-entropy) where it lies: a 16-byte
+    aligned base, every stride but the last a multiple of 16 bytes and a
+    dense last dimension."""
     e = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st * e % 16 == 0 for st in t.stride()[:3]))
+            and all(st * e % 16 == 0 for st in t.stride()[:-1]))
 
 
 def tma_inputs(q, k, v):
@@ -83,6 +85,18 @@ def tma_inputs(q, k, v):
     if all(tma_describable(t) for t in (q, k, v)):
         return q, k, v
     return pad_head_dim(q), pad_head_dim(k), pad_head_dim(v)
+
+
+def tma_bwd_inputs(q, k, v, o, do):
+    """q, k, v, o and do as the bf16 backward's TMA loads can read them: the
+    tensors themselves when q, k, v and do are describable, else fresh dense
+    copies of all five with the head dims zero-padded to a multiple of 8.
+    Zero dims add nothing to the scores, to dP or to D = rowsum(dO * O); the
+    caller slices the gradients' padded dims off and keeps the logit scale
+    of the original Dh."""
+    if all(tma_describable(t) for t in (q, k, v, do)):
+        return q, k, v, o, do
+    return tuple(pad_head_dim(t) for t in (q, k, v, o, do))
 
 
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
@@ -144,7 +158,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
     gradients come back dense in the inputs' dtype.
 
     Launches the backward kernel (a pre-pass, the main pass and a cast of
-    dq) on PyTorch's current stream; raises for anything it does not take."""
+    dq) on PyTorch's current stream; raises for anything it does not take.
+    bf16 inputs that TMA cannot describe go to the same kernel as padded
+    copies (``tma_bwd_inputs``)."""
     _check("flash_attention_bwd", q, k, v, sliding_window)
     _build.check_tensors("flash_attention_bwd", q, o, do)
     b, sq, h, dh = q.shape
@@ -154,24 +170,33 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
                          f"must be {(b, sq, h, dv)}")
     _build.check_dense("flash_attention_bwd", lse, torch.float32, (b, h, sq), q.device)
     scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(dh)
-    dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, skv, kh, dh), dtype=q.dtype, device=q.device)
-    dvv = torch.empty((b, skv, kh, dv), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:
+        q, k, v, o, do = tma_bwd_inputs(q, k, v, o, do)
+    dhp, dvp = q.shape[3], v.shape[3]
+    dq = torch.empty((b, sq, h, dhp), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, kh, dhp), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((b, skv, kh, dvp), dtype=q.dtype, device=q.device)
     if sq == 0 or b == 0:
-        return dq, dk.zero_(), dvv.zero_()
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    dq_acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                       *o.stride()[:3], *do.stride()[:3])
-    with torch.cuda.device(q.device):
-        err = _bwd_entry()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                           v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                           dsum.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                           dvv.data_ptr(), b, sq, skv, h, kh, dh, dv, strides, int(causal),
-                           sliding_window or 0, float(scale), _build.stream_handle(q.device))
-    if err:
-        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
-    flash_attention_bwd.launches += 1
+        dk.zero_()
+        dvv.zero_()
+    else:
+        sq_pad = -(-sq // BWD_TILE_Q) * BWD_TILE_Q
+        dsum = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
+        dq_acc = torch.zeros((b, h, sq_pad, D_MAX), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                           *o.stride()[:3], *do.stride()[:3])
+        with torch.cuda.device(q.device):
+            err = _bwd_entry()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                               v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                               dsum[0].data_ptr(), dsum[1].data_ptr(), dq_acc.data_ptr(),
+                               dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, skv, h, kh,
+                               dhp, dvp, strides, int(causal), sliding_window or 0,
+                               float(scale), _build.stream_handle(q.device))
+        if err:
+            raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
+        flash_attention_bwd.launches += 1
+    if (dhp, dvp) != (dh, dv):
+        return dq[..., :dh].contiguous(), dk[..., :dh].contiguous(), dvv[..., :dv].contiguous()
     return dq, dk, dvv
 
 

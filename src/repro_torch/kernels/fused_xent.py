@@ -3,9 +3,13 @@ forward kernel), its streamed backward, and the autograd Function that joins
 them.
 
 The forward replaces the Pallas TPU kernel ``repro/kernels/fused_xent.py``
-(``fused_xent`` -> ``_xent_kernel``); the kernel's note says what bounds it on
-an H100 and how its design answers that. The reference's backward (``_bwd``)
-is jnp outside any Pallas kernel: products streamed over vocabulary blocks.
+(``fused_xent`` -> ``_xent_kernel``). In bf16 it is a pipelined wgmma GEMM
+(TMA-fed, blocks of 128 tokens by tiles of 256 vocabulary columns) with the
+online log-sum-exp in its epilogue; the grid splits the vocabulary so that
+one wave fills the card (``vocab_splits``), and a merge kernel joins the
+splits' partials. The kernel's note says what bounds it on an H100 and how
+its design answers that. The reference's backward (``_bwd``) is jnp outside
+any Pallas kernel: products streamed over vocabulary blocks.
 ``xent_backward`` is its counterpart here, plain PyTorch over vocabulary
 blocks, reusing the forward's log-sum-exp in place of the reference's first
 pass; it never holds (T,V). A fused CUDA backward is a later speed item
@@ -20,10 +24,11 @@ import functools
 import torch
 
 from . import _build, ref
+from .flash_attention import pad_head_dim, tma_describable
 
-TOKENS_PER_BLOCK = 64     # csrc/fused_xent.cu kTok
-VOCAB_TILE = 64           # csrc/fused_xent.cu kVt
-TARGET_BLOCKS = 4 * 132   # four blocks for each of the H100's SMs
+TOKENS_PER_BLOCK = 128    # csrc/fused_xent.cu kXtTok (bf16)
+VOCAB_TILE = 256          # csrc/fused_xent.cu kVocabTile: the unit of a split
+H100_SMS = 132            # one wave of blocks on an H100 (one block per SM)
 BWD_BLOCK_V = 8192        # vocabulary columns per step of the backward
 
 
@@ -36,14 +41,29 @@ def _entry():
     return fn
 
 
-def vocab_splits(t: int, v: int) -> tuple[int, int]:
-    """(n_split, tiles_per_split): enough vocabulary splits that the grid of
-    token blocks x splits fills the card, each split a run of whole tiles."""
+def vocab_splits(t: int, v: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(n_split, tiles_per_split): as many vocabulary splits as let the grid
+    of token blocks x splits fill the card's SMs once, each split a run of
+    whole tiles (fewer splits when a split would get no tile)."""
     n_tiles = -(-v // VOCAB_TILE)
     token_blocks = -(-t // TOKENS_PER_BLOCK)
-    want = max(1, min(n_tiles, -(-TARGET_BLOCKS // token_blocks)))
+    want = max(1, min(n_tiles, sms // token_blocks))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+def head_rows(x, w):
+    """x and the head as (V,D) rows, as the bf16 kernel's TMA loads read
+    them: ``w.T`` in place when its rows are dense (the tied head), else a
+    dense copy; and fresh copies of both zero-padded along D to a multiple
+    of 8 when either cannot be described (rows not 16-byte multiples apart,
+    a misaligned base). Zero columns leave x Wᵀ unchanged."""
+    rows = w.T
+    if rows.stride(-1) != 1:
+        rows = rows.contiguous()
+    if tma_describable(x) and tma_describable(rows):
+        return x, rows
+    return pad_head_dim(x), pad_head_dim(rows)
 
 
 def fused_xent(x, w, labels, *, ignore_index=-100):
@@ -74,11 +94,17 @@ def fused_xent(x, w, labels, *, ignore_index=-100):
     lse = torch.empty((t,), dtype=torch.float32, device=x.device)
     if t == 0:
         return loss, lse
-    n_split, per = vocab_splits(t, v)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_split, per = vocab_splits(t, v, sms)
     part = torch.empty((3, n_split, t), dtype=torch.float32, device=x.device)
-    w_sd, w_sv = w.stride()      # w as (V,D) rows: element (v, d) at v * w_sv + d * w_sd
+    if x.dtype == torch.bfloat16:
+        x, rows = head_rows(x, w)
+    else:
+        rows = w.T
+    d = x.shape[1]
+    w_sv, w_sd = rows.stride()   # element (v, d) of the head at v * w_sv + d * w_sd
     with torch.cuda.device(x.device):
-        err = _entry()(_build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+        err = _entry()(_build.DTYPE_CODES[x.dtype], x.data_ptr(), rows.data_ptr(),
                        labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), part.data_ptr(),
                        t, d, v, x.stride(0), w_sv, w_sd, ignore_index, n_split, per,
                        _build.stream_handle(x.device))

@@ -71,6 +71,62 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, sliding_window=
     return dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 
+def bwd_query_range(kv0, block_kv, sq, causal, sliding_window):
+    """The query rows [q_begin, q_end) that can see a kv row of the block
+    [kv0, kv0 + block_kv), as the backward kernel bounds them: from kv0 when
+    causal, and below the block's last row plus the window."""
+    q_begin = kv0 if causal else 0
+    q_end = sq if sliding_window is None else min(sq, kv0 + block_kv - 1 + sliding_window)
+    return q_begin, q_end
+
+
+def flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, *, causal=True, sliding_window=None,
+                                  logit_scale=None, block_kv=128, block_q=64):
+    """The bf16 backward kernel's work decomposition
+    (``csrc/flash_attention_bwd.cu``) written out plainly, in fp32: blocks of
+    ``block_kv`` kv rows of one kv head, each visiting only the query tiles
+    of ``block_q`` rows its causal and window bounds give (q from the block's
+    first kv row, below its last kv row plus the window), with every query
+    head of its group; dK and dV of a block come from its tiles alone, dQ is
+    summed over the blocks. Masked entries inside a visited tile count 0.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    b, sq, h, dh = q.shape
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kh
+    scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(b, sq, kh, g, dh)
+    dof = do.float().reshape(b, sq, kh, g, dv)
+    dsum = (dof * o.float().reshape(b, sq, kh, g, dv)).sum(-1)       # (B,Sq,KH,G)
+    lse = lse.float().reshape(b, kh, g, sq)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((b, sq, kh, g, dh), device=q.device)
+    dk = torch.zeros((b, skv, kh, dh), device=q.device)
+    dvv = torch.zeros((b, skv, kh, dv), device=q.device)
+    for kv0 in range(0, skv, block_kv):
+        kv1 = min(kv0 + block_kv, skv)
+        q_begin, q_end = bwd_query_range(kv0, block_kv, sq, causal, sliding_window)
+        kvp = torch.arange(kv0, kv1, device=q.device)[None, :]
+        for q0 in range(q_begin // block_q * block_q, q_end, block_q):
+            q1 = min(q0 + block_q, sq)
+            qp = torch.arange(q0, q1, device=q.device)[:, None]
+            mask = torch.ones((q1 - q0, kv1 - kv0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kvp <= qp
+            if sliding_window is not None:
+                mask &= kvp > qp - sliding_window
+            qt, dot = qf[:, q0:q1], dof[:, q0:q1]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qt, kf[:, kv0:kv1]) * scale
+            p = torch.where(mask, torch.exp(s - lse[..., q0:q1, None]),
+                            torch.zeros((), device=q.device))
+            dp = torch.einsum("bqkgd,bskd->bkgqs", dot, vf[:, kv0:kv1])
+            ds = p * (dp - dsum[:, q0:q1].permute(0, 2, 3, 1)[..., None])
+            dvv[:, kv0:kv1] += torch.einsum("bkgqs,bqkgd->bskd", p, dot)
+            dk[:, kv0:kv1] += torch.einsum("bkgqs,bqkgd->bskd", ds, qt)
+            dq[:, q0:q1] += torch.einsum("bkgqs,bskd->bqkgd", ds, kf[:, kv0:kv1])
+    return ((dq * scale).reshape(b, sq, h, dh).to(q.dtype), (dk * scale).to(k.dtype),
+            dvv.to(v.dtype))
+
+
 def fused_xent_ref(x, w, labels, *, ignore_index=-100, return_lse=False):
     """x: (T,D); w: (D,V); labels: (T,) int -> per-token loss (T,) fp32, 0
     where the label is ``ignore_index``; with ``return_lse`` also the
@@ -81,6 +137,45 @@ def fused_xent_ref(x, w, labels, *, ignore_index=-100, return_lse=False):
     gold = logits.gather(1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
     loss = torch.where(valid, lse - gold, torch.zeros((), device=x.device))
     return (loss, lse) if return_lse else loss
+
+
+def xent_split_partials_ref(x, w, labels, n_split, tiles_per_split, *, tile=256):
+    """The split pass of ``csrc/fused_xent.cu`` written out plainly: split s
+    covers the vocabulary tiles of ``tile`` columns [s * tiles_per_split,
+    (s + 1) * tiles_per_split), clipped to V, and carries per token the
+    running max m, the running sum l of exp(logit - m) and the gold logit
+    over them, one tile at a time (base e; the kernel keeps m in base 2).
+    Returns m, l, gold, each (n_split, T) fp32."""
+    t, v = x.shape[0], w.shape[1]
+    xf = x.float()
+    n_tiles = -(-v // tile)
+    out = torch.zeros((3, n_split, t), device=x.device)
+    for sp in range(n_split):
+        m = torch.full((t,), NEG_INF, device=x.device)
+        l = torch.zeros((t,), device=x.device)
+        gold = torch.zeros((t,), device=x.device)
+        for vt in range(sp * tiles_per_split, min(n_tiles, (sp + 1) * tiles_per_split)):
+            c0, c1 = vt * tile, min(v, (vt + 1) * tile)
+            logits = xf @ w[:, c0:c1].float()
+            cols = torch.arange(c0, c1, device=x.device)
+            gold += torch.where(cols[None, :] == labels[:, None], logits,
+                                torch.zeros((), device=x.device)).sum(1)
+            mx = torch.maximum(m, logits.max(1).values)
+            l = l * torch.exp(m - mx) + torch.exp(logits - mx[:, None]).sum(1)
+            m = mx
+        out[:, sp] = torch.stack([m, l, gold])
+    return out[0], out[1], out[2]
+
+
+def xent_combine_ref(m, l, gold, labels, *, ignore_index=-100):
+    """The merge of the splits' partials (``xent_split_partials_ref``), as
+    the kernel's merge does it: lse = M + log(sum_s l_s e^(m_s - M)), loss =
+    lse - gold, 0 where the label is ``ignore_index``. Returns (loss, lse)."""
+    mx = m.max(0).values
+    lse = mx + torch.log(torch.clamp((l * torch.exp(m - mx)).sum(0), min=1e-30))
+    loss = torch.where(labels == ignore_index, torch.zeros((), device=m.device),
+                       lse - gold.sum(0))
+    return loss, lse
 
 
 def xent_block_grad(logits, lse, labels, v0, g):

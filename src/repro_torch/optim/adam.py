@@ -54,6 +54,14 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
+def _layer_list(tree):
+    """The list of per-layer trees under ``tree["layers"]``, or None. The
+    reference stacks these into one (L, ...) pool, which Adafactor factors
+    leaf by leaf; the port's list is factored as that stack would be."""
+    layers = tree.get("layers") if isinstance(tree, dict) else None
+    return layers if isinstance(layers, list) and layers else None
+
+
 def _check_placement(cfg: OptConfig) -> None:
     if cfg.placement != "device":
         raise NotImplementedError(
@@ -108,18 +116,25 @@ def init_opt_state(params, cfg: OptConfig):
         return {"master": master, "m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": step}
 
-    def vrow(p):
-        shape = p.shape[:-1] if _factored(p.shape) else p.shape
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    def vrow(shape, device):
+        shape = shape[:-1] if _factored(shape) else shape
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    def vcol(p):
-        shape = p.shape[:-2] + p.shape[-1:] if _factored(p.shape) else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    def vcol(shape, device):
+        shape = shape[:-2] + shape[-1:] if _factored(shape) else (1,)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
+    vr = tree_map(lambda p: vrow(p.shape, p.device), params)
+    vc = tree_map(lambda p: vcol(p.shape, p.device), params)
+    layers = _layer_list(params)
+    if layers:   # one factored pair per leaf over the stacked (L, ...) pool
+        def stacked(fn):
+            return tree_map(lambda p, *_: fn((len(layers), *p.shape), p.device), *layers)
+        vr["layers"], vc["layers"] = stacked(vrow), stacked(vcol)
     return {"master": master,
             "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device),
                           params),
-            "vr": tree_map(vrow, params), "vc": tree_map(vcol, params), "step": step}
+            "vr": vr, "vc": vc, "step": step}
 
 
 def global_grad_norm(grads):
@@ -163,24 +178,53 @@ def apply_updates(opt_state, grads, cfg: OptConfig, param_like=None, grad_norm=N
 
         tree_map(upd, opt_state["master"], grads, opt_state["m"], opt_state["v"])
     else:
-        def upd(master, g, m, vr, vc):
-            g = g.float() * scale
-            mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
+        def denom_of(g, vr, vc):
+            """The factored (or, for vectors, plain) second moment's update
+            in place, and the update's denominator."""
             g2 = torch.square(g) + 1e-30
             if _factored(g.shape):
                 vr.copy_(cfg.b2 * vr + (1 - cfg.b2) * g2.mean(dim=-1))
                 vc.copy_(cfg.b2 * vc + (1 - cfg.b2) * g2.mean(dim=-2))
-                denom = torch.sqrt(vr[..., None] * vc[..., None, :]
-                                   / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
-                                                 min=1e-30)) + cfg.eps
-            else:
-                vr.copy_(cfg.b2 * vr + (1 - cfg.b2) * g2)
-                denom = torch.sqrt(vr) + cfg.eps
+                return torch.sqrt(vr[..., None] * vc[..., None, :]
+                                  / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
+                                                min=1e-30)) + cfg.eps
+            vr.copy_(cfg.b2 * vr + (1 - cfg.b2) * g2)
+            return torch.sqrt(vr) + cfg.eps
+
+        def step_leaf(master, g, m, denom):
+            mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
             master.copy_(master - cfg.lr * (mf / denom + cfg.weight_decay * master))
             m.copy_(mf.to(torch.bfloat16))
 
-        tree_map(upd, opt_state["master"], grads, opt_state["m"], opt_state["vr"],
-                 opt_state["vc"])
+        def upd(master, g, m, vr, vc):
+            g = g.float() * scale
+            step_leaf(master, g, m, denom_of(g, vr, vc))
+
+        def upd_layers(vr, vc, *per_layer):
+            """One leaf of every layer: L masters, then L grads, then L first
+            moments."""
+            n = len(per_layer) // 3
+            masters, gs, ms = per_layer[:n], per_layer[n:2 * n], per_layer[2 * n:]
+            if masters[0].ndim < 2:
+                # a vector per layer is a matrix of the pool: factored across layers
+                g = torch.stack([x.float() for x in gs]) * scale
+                denom = denom_of(g, vr, vc)
+                for i, (master, m) in enumerate(zip(masters, ms)):
+                    step_leaf(master, g[i], m, denom[i])
+                return
+            for i, (master, g, m) in enumerate(zip(masters, gs, ms)):
+                # the stacked and the per-layer factorings of a matrix coincide
+                g = g.float() * scale
+                step_leaf(master, g, m, denom_of(g, vr[i], vc[i] if _factored(g.shape) else vc))
+
+        layers = _layer_list(opt_state["master"])
+        trees = [opt_state["master"], grads, opt_state["m"], opt_state["vr"], opt_state["vc"]]
+        if layers:
+            trees = [{k: v for k, v in tree.items() if k != "layers"} for tree in trees]
+        tree_map(upd, *trees)
+        if layers:
+            tree_map(upd_layers, opt_state["vr"]["layers"], opt_state["vc"]["layers"],
+                     *layers, *grads["layers"], *opt_state["m"]["layers"])
     opt_state["step"] = step
     if param_like is not None:
         params = tree_map(lambda x, p: x.to(p.dtype, copy=True), opt_state["master"], param_like)

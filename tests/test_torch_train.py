@@ -229,23 +229,38 @@ def _unflat(tree, flat):
 # optimizer
 # ---------------------------------------------------------------------------
 
-def _opt_tree(seed):
-    return {"w": rand(seed, 6, 5), "layers": [{"s": rand(seed + 1, 5)}, {"s": rand(seed + 2, 5)}],
-            "m": rand(seed + 3, 3, 1, 4)}
+def _opt_tree(seed, n_pad=0):
+    """A tree with the port's list of per-layer trees (a vector and a matrix
+    per layer), and ``n_pad`` zero layers after the two real ones, as the
+    ring pads its pool."""
+    layers = [{"s": rand(seed + 1 + i, 5), "w": rand(seed + 4 + i, 3, 4)} for i in range(2)]
+    layers += [{k: np.zeros_like(v) for k, v in layers[0].items()} for _ in range(n_pad)]
+    return {"w": rand(seed, 6, 5), "layers": layers, "m": rand(seed + 3, 3, 1, 4)}
 
 
-@pytest.mark.parametrize("mode", ["adamw", "adafactor"])
-def test_optimizer_matches_reference(mode):
+def _stacked(tree, stack):
+    """``tree`` with its per-layer list stacked into one (L, ...) tree: the
+    layer pool as the reference holds it (a stacked tree passes as it is)."""
+    if isinstance(tree, dict) and isinstance(tree.get("layers"), list):
+        return dict(tree, layers={k: stack([layer[k] for layer in tree["layers"]])
+                                  for k in tree["layers"][0]})
+    return tree
+
+
+def _check_optimizer(mode, n_pad):
+    """The port's update of its per-layer tree against the reference's of
+    the stacked tree it really sees, leaf for leaf after 1 and 5 steps."""
     kw = dict(mode=mode, lr=1e-2, weight_decay=0.1, grad_clip=1.0)
-    params_np = _opt_tree(20)
-    j_params = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), params_np)
+    params_np = _opt_tree(20, n_pad)
+    j_params = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                            _stacked(params_np, np.stack))
     params = tree_map(lambda a: t(a, torch.bfloat16), params_np)
     j_state = j_init_opt_state(j_params, JOptConfig(**kw))
     state = init_opt_state(params, OptConfig(**kw))
     for step in range(1, 6):
-        grads_np = jax.tree.map(lambda a: a * 3.0, _opt_tree(100 + step))
-        j_params, j_state, _ = j_apply_updates(j_state, grads_np, JOptConfig(**kw),
-                                               param_like=j_params)
+        grads_np = jax.tree.map(lambda a: a * 3.0, _opt_tree(100 + step, n_pad))
+        j_params, j_state, _ = j_apply_updates(j_state, _stacked(grads_np, np.stack),
+                                               JOptConfig(**kw), param_like=j_params)
         params, state, _ = apply_updates(state, tree_map(t, grads_np), OptConfig(**kw),
                                          param_like=params)
         if step in (1, 5):
@@ -253,12 +268,28 @@ def test_optimizer_matches_reference(mode):
             for key in [k for k in j_state if k != "step"]:
                 bf16 = key == "m" and mode == "adafactor"
                 tol = dict(rtol=2 ** -7, atol=1e-6) if bf16 else dict(rtol=1e-5, atol=1e-6)
-                for a, b in zip(jax.tree.leaves(state[key]), jax.tree.leaves(j_state[key])):
+                got, want = (jax.tree.leaves(_stacked(state[key], torch.stack)),
+                             jax.tree.leaves(j_state[key]))
+                assert len(got) == len(want)
+                for a, b in zip(got, want):
                     np.testing.assert_allclose(npf(a), np.asarray(b, np.float32), **tol)
-            for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(j_params)):
+            got = jax.tree.leaves(_stacked(params, torch.stack))
+            assert len(got) == len(jax.tree.leaves(j_params))
+            for a, b in zip(got, jax.tree.leaves(j_params)):
                 assert a.dtype == torch.bfloat16
                 np.testing.assert_allclose(npf(a), np.asarray(b, np.float32), rtol=2 ** -7,
                                            atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["adamw", "adafactor"])
+def test_optimizer_matches_reference(mode):
+    _check_optimizer(mode, n_pad=0)
+
+
+def test_adafactor_factors_the_padded_layer_pool_as_reference():
+    """A zero padding layer dilutes the column moment of every per-layer
+    vector in the reference's stacked pool; the port's list must too."""
+    _check_optimizer("adafactor", n_pad=1)
 
 
 def test_fp32_master_is_a_copy_and_host_placement_raises():

@@ -1,0 +1,191 @@
+"""The Python around the Hopper training kernels, on the CPU.
+
+The bf16 flash backward walks blocks of 128 kv rows and query tiles of 64
+within its causal and window bounds, summing dQ over the blocks; the fused
+cross-entropy forward splits the vocabulary into runs of 256-column tiles and
+merges the splits' partials. ``ref.flash_attention_bwd_tiled_ref``,
+``ref.xent_split_partials_ref`` and ``ref.xent_combine_ref`` write those
+decompositions out plainly. Here they are held against the port's plain
+versions, ``jax.vjp`` of the reference's ``chunked_attention`` and the Pallas
+``fused_xent`` (interpret mode) on the edges the kernels must get right:
+ragged S and V, window bounds on a tile edge and off it, a GQA group of 5,
+Dv != Dh. The wrappers' split plan and their padding of operands that TMA
+cannot read are plain Python too, and are checked here; the kernels
+themselves run in ``chip_smoke.py`` on the card. Inputs come from numpy
+seeds.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fused_xent import fused_xent as pallas_xent
+from repro.models import layers as JL
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import tma_bwd_inputs, tma_describable
+from repro_torch.kernels.fused_xent import (TOKENS_PER_BLOCK, VOCAB_TILE, head_rows,
+                                            vocab_splits)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def rand(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def npf(x):
+    return x.detach().float().numpy()
+
+
+# (label, b, s, h, kh, dh, dv, causal, window): S off the 64/128 tiles, a
+# window whose bound lands on a query-tile edge (65: 127 + 65 = 3 x 64) and
+# one off it, a group of 5, Dv != Dh, no mask
+BWD = [
+    ("causal-ragged", 1, 200, 4, 2, 32, 32, True, None),
+    ("window-on-edge", 1, 320, 2, 1, 16, 16, True, 65),
+    ("window-off-edge", 1, 320, 2, 1, 16, 16, True, 64),
+    ("group-5", 1, 150, 10, 2, 16, 16, True, None),
+    ("dv-ne-dh", 2, 140, 4, 2, 40, 24, True, None),
+    ("bidirectional", 1, 200, 2, 2, 16, 16, False, None),
+]
+
+
+@pytest.mark.parametrize("label,b,s,h,kh,dh,dv,causal,window", BWD, ids=[c[0] for c in BWD])
+def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, causal, window):
+    q, k, v = rand(1, b, s, h, dh), rand(2, b, s, kh, dh), rand(3, b, s, kh, dv)
+    do = rand(4, b, s, h, dv)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    kw = dict(causal=causal, sliding_window=window)
+    o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    tiled = ref.flash_attention_bwd_tiled_ref(tq, tk, tv, o, lse, tdo, **kw)
+    plain = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    oracle = jax.jit(lambda a, c, e, g: jax.vjp(  # one compile, not one per operation
+        lambda a, c, e: JL.chunked_attention(a, c, e, kv_chunk=s, **kw), a, c, e)[1](g))(
+        q, k, v, do)
+    for name, got, want, jwant in zip(("dq", "dk", "dv"), tiled, plain, oracle):
+        np.testing.assert_allclose(npf(got), npf(want), rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(npf(got), np.asarray(jwant), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 65), (True, 64),
+                                           (False, None), (False, 100)])
+def test_bwd_bounds_skip_only_masked_tiles(causal, window):
+    """Each 128-row kv block's query range (``ref.bwd_query_range``, the
+    kernel's bounds): every query tile outside it is wholly masked for the
+    block, and its first and last rows each see a kv row of the block."""
+    sq = skv = 1000
+    q_pos = torch.arange(sq)[:, None]
+    kv_pos = torch.arange(skv)[None, :]
+    live = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        live &= kv_pos <= q_pos
+    if window is not None:
+        live &= kv_pos > q_pos - window
+    for kv0 in range(0, skv, 128):
+        block = live[:, kv0:kv0 + 128]
+        q_begin, q_end = ref.bwd_query_range(kv0, 128, sq, causal, window)
+        assert q_begin % 64 == 0
+        assert not block[:q_begin].any() and not block[q_end:].any()
+        assert block[q_begin].any() and block[q_end - 1].any()
+
+
+# (label, T, D, V, ignore every, sms)
+XENT = [
+    ("ragged-v", 37, 40, 333, 3, 132),
+    ("many-splits", 70, 24, 1100, 5, 132),
+    ("one-split", 300, 16, 600, 0, 2),
+    ("tile-multiple", 64, 32, 512, 4, 132),
+]
+
+
+@pytest.mark.parametrize("label,t,d,v,every,sms", XENT, ids=[c[0] for c in XENT])
+def test_xent_splits_match_plain_and_pallas(label, t, d, v, every, sms):
+    x, w = rand(5, t, d), rand(6, d, v) * 0.3
+    labels = np.random.default_rng(7).integers(0, v, t).astype(np.int64)
+    if every:
+        labels[::every] = -100
+    tx, tw, tl = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(labels)
+    n_split, per = vocab_splits(t, v, sms)
+    m, l, gold = ref.xent_split_partials_ref(tx, tw, tl, n_split, per, tile=VOCAB_TILE)
+    loss, lse = ref.xent_combine_ref(m, l, gold, tl)
+    want_loss, want_lse = ref.fused_xent_ref(tx, tw, tl, return_lse=True)
+    np.testing.assert_allclose(npf(loss), npf(want_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(npf(lse), npf(want_lse), rtol=1e-5, atol=1e-5)
+    assert torch.all(loss[tl == -100] == 0)
+    # the Pallas kernel knows no ignore_index: compare the labelled tokens
+    pallas = np.asarray(pallas_xent(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(np.where(labels < 0, 0, labels).astype(np.int32)),
+                                    t, v, True))
+    keep = labels >= 0
+    np.testing.assert_allclose(npf(loss)[keep], pallas[keep], rtol=2e-5, atol=2e-5)
+
+
+def test_vocab_splits_fill_one_wave_at_the_main_shape():
+    """T = 2 x 1024 tokens of one ring worker, qwen3-1.7b's vocabulary: 16
+    token blocks x 8 splits of 75 tiles = 128 blocks for 132 SMs."""
+    t, v = 2048, 151936
+    n_split, per = vocab_splits(t, v, 132)
+    assert (n_split, per) == (8, 75)
+    assert -(-t // TOKENS_PER_BLOCK) * n_split <= 132
+    for t, v, sms in [(2048, 151936, 132), (37, 333, 132), (17000, 151936, 132),
+                      (128, 256, 132), (300, 600, 2)]:
+        n_split, per = vocab_splits(t, v, sms)
+        n_tiles = -(-v // VOCAB_TILE)
+        assert (n_split - 1) * per < n_tiles <= n_split * per   # every split has a tile
+        assert n_split == 1 or -(-t // TOKENS_PER_BLOCK) * n_split <= sms
+
+
+def test_xent_head_rows_are_read_in_place_or_padded():
+    """The tied (V,D) head is read where it lies; a head or x whose rows TMA
+    cannot describe (rows of 200 bytes) is padded along D, which leaves the
+    loss unchanged."""
+    emb = torch.from_numpy(rand(8, 300, 64)).to(torch.bfloat16)
+    x = torch.from_numpy(rand(9, 20, 64)).to(torch.bfloat16)
+    xr, rows = head_rows(x, emb.T)
+    assert xr is x and rows.data_ptr() == emb.data_ptr() and rows.shape == (300, 64)
+    dense = torch.from_numpy(rand(10, 64, 300)).to(torch.bfloat16)
+    _, rows = head_rows(x, dense)
+    assert rows.is_contiguous() and torch.equal(rows, dense.T)
+    labels = torch.from_numpy(np.random.default_rng(11).integers(0, 300, 20))
+    for d in (100, 36):
+        xs = torch.from_numpy(rand(12, 20, d)).to(torch.bfloat16)
+        ws = torch.from_numpy(rand(13, 300, d)).to(torch.bfloat16)
+        assert not tma_describable(xs)
+        xp, rows = head_rows(xs, ws.T)
+        assert xp.shape[1] % 8 == 0 and tma_describable(xp) and tma_describable(rows)
+        np.testing.assert_array_equal(npf(ref.fused_xent_ref(xp, rows.T, labels)),
+                                      npf(ref.fused_xent_ref(xs, ws.T, labels)))
+
+
+def test_bwd_inputs_the_loads_cannot_read_are_padded():
+    """Describable inputs pass as they are; otherwise all five are padded
+    along the head dims, and the plain backward of the padded copies, sliced,
+    is the backward of the originals (at the original Dh's logit scale)."""
+    def bf16(seed, *shape):
+        return torch.from_numpy(rand(seed, *shape)).to(torch.bfloat16)
+    q, k, v, do = bf16(1, 2, 70, 4, 32), bf16(2, 2, 70, 2, 32), bf16(3, 2, 70, 2, 32), \
+        bf16(4, 2, 70, 4, 32)
+    o = bf16(5, 2, 70, 4, 32)
+    assert all(a is b for a, b in zip(tma_bwd_inputs(q, k, v, o, do), (q, k, v, o, do)))
+    q, k, v, do = bf16(1, 2, 70, 4, 36), bf16(2, 2, 70, 2, 36), bf16(3, 2, 70, 2, 20), \
+        bf16(4, 2, 70, 4, 20)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    padded = tma_bwd_inputs(q, k, v, o, do)
+    assert [t.shape[-1] for t in padded] == [40, 40, 24, 24, 24]
+    assert all(tma_describable(t) for t in padded)
+    scale = 1.0 / math.sqrt(36)
+    got = ref.flash_attention_bwd_ref(*padded[:4], lse, padded[4], logit_scale=scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w, n in zip(got, want, (36, 36, 20)):
+        assert torch.all(g[..., n:] == 0)
+        np.testing.assert_allclose(npf(g[..., :n]), npf(w), rtol=1e-6, atol=1e-6)
