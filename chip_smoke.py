@@ -14,8 +14,8 @@ Phases, in order; any failure exits non-zero at once:
      library's SASS opcode counts (``cuobjdump -sass``) and the flash
      backward's and the cross-entropy's spills, and fail unless the flash
      forward, the flash backward and the fused cross-entropy issue wgmma
-     (HGMMA) and TMA loads (UTMALDG) and flash-decode 16-byte asynchronous
-     copies with no spills;
+     (HGMMA) and TMA loads (UTMALDG), and flash-decode, ``rwkv_scan`` and
+     ``ssm_scan`` 16-byte asynchronous copies (LDGSTS) with no spills;
   3. hold each kernel against its plain PyTorch version on the card: the
      serving kernels at the serving shapes of qwen3-1.7b and hymba-1.5b
      (flash at group 5, d_head 64, window 1024; flash-decode over its full
@@ -40,7 +40,10 @@ Phases, in order; any failure exits non-zero at once:
      decode shapes of rwkv6-7b and hymba-1.5b and over a ragged sweep (head
      and state sizes 7 to 64, sequences off the chunk sizes, d_inner 3200
      and small ragged ones, the model's decays and sigmoid ones, random
-     initial states, misaligned inputs);
+     initial states, misaligned inputs) and the edges of the kernels'
+     tiling (N in {1, 4, 17, 33, 64} at S = 1, a chunk - 1, a chunk + 1 and
+     two chunks + 7, in fp32 and bf16; a single (batch, head) pair; d_inner
+     1, 31, 3201 and 32);
   4. serve full-width qwen3-1.7b (bf16, random weights from a seeded
      ``torch.Generator`` on the card; batch 4, prompt 1024, 32 greedy tokens)
      through ``repro_torch.launch.serve.main`` with the kernels' launch counts
@@ -64,7 +67,8 @@ Phases, in order; any failure exits non-zero at once:
      control must break: the state lost, the state rounded through bf16,
      hymba's ring out of phase), prefill and decode times, peak memory and a
      traced decode step; each scan's time at its prefill and decode shapes
-     beside its bound and its plain version; and flash and flash-decode at
+     beside its bound and its plain version, by events and, at prefill, by
+     device time (a replayed CUDA graph); and flash and flash-decode at
      hymba's shapes beside theirs;
   6. train full-width qwen3-1.7b through ``repro_torch.launch.train`` (bf16
      weights, fp32 master, ``--mesh 1x4 --partition auto --batch 8 --seq
@@ -163,8 +167,8 @@ def phase_build():
     of the SASS opcodes that show how it loads and multiplies, and the flash
     backward's and the cross-entropy's spills. Fails unless the flash forward,
     the flash backward and the fused cross-entropy issue wgmma (HGMMA) and
-    TMA loads (UTMALDG), and flash-decode 16-byte asynchronous copies (LDGSTS
-    or UTMALDG) with no local-memory spills."""
+    TMA loads (UTMALDG), and flash-decode and the two scans 16-byte
+    asynchronous copies (LDGSTS or UTMALDG) with no local-memory spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -185,13 +189,14 @@ def phase_build():
         for fn, report in _ptxas_by_function(logs.get(name, "")).items():
             print(f"  {name} {fn}: {report}")
         print(f"  {name}: SASS LDL {summary[name]['LDL']} STL {summary[name]['STL']}")
-    de = summary["decode_attention"]
     for name in ("flash_attention", "flash_attention_bwd", "fused_xent"):
         fa = summary[name]
         check(fa["HGMMA"] > 0 and fa["UTMALDG"] > 0,
               f"{name}: no wgmma or no TMA load in its SASS: {fa}")
-    check(de["LDGSTS"] + de["UTMALDG"] > 0 and de["LDL"] + de["STL"] == 0,
-          f"decode_attention: no 16-byte asynchronous copy, or spills: {de}")
+    for name in ("decode_attention", "rwkv_scan", "ssm_scan"):
+        de = summary[name]
+        check(de["LDGSTS"] + de["UTMALDG"] > 0 and de["LDL"] + de["STL"] == 0,
+              f"{name}: no 16-byte asynchronous copy, or spills: {de}")
     return summary
 
 
@@ -1208,12 +1213,23 @@ def _misaligned(t):
     return out
 
 
+EDGE_N = (1, 4, 17, 33, 64)   # state sizes on and off the kernels' widths of 16, 32, 64
+
+
+def _edge_steps(chunk):
+    """S = 1, one chunk - 1, one chunk + 1, two chunks + an odd number."""
+    return (1, chunk - 1, chunk + 1, 2 * chunk + 7)
+
+
 def rwkv_cases():
     """(label, B, S, H, N, dtype, decays, s0, layout): the prefill and decode
     shapes of rwkv6-7b (fp32, as the model calls it, and bf16), and a ragged
     sweep: N in {7, 16, 20, 64}, S not a multiple of the 32-step chunk, the
     model's decays (w in (0.99, 1)) and sigmoid ones, zero and random initial
-    states, a misaligned layout."""
+    states, a misaligned layout; then the edges of the kernel's tiling: N in
+    {1, 4, 17, 33, 64} at S = 1, one chunk - 1, one chunk + 1 and two chunks +
+    7, in both types, and a single (batch, head) pair."""
+    from repro_torch.kernels.rwkv_scan import geometry
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     from repro_torch.models.config import get_config
@@ -1231,6 +1247,14 @@ def rwkv_cases():
                           dtype, decays, "random", "dense"))
         cases.append((f"misaligned-{dtype_name(dtype)}", 2, 50, 3, 64, dtype, "sigmoid",
                       "random", "misaligned"))
+    for n in EDGE_N:
+        for i, s in enumerate(_edge_steps(geometry(n)[1])):
+            for dtype in (f32, bf16):
+                cases.append((f"edge-n{n}-s{s}-{dtype_name(dtype)}", 2, s, 3, n, dtype,
+                              ("sigmoid", "model")[i % 2], "random", "dense"))
+    for dtype in (f32, bf16):
+        cases.append((f"single-bh-{dtype_name(dtype)}", 1, 2 * geometry(64)[1] + 7, 1, 64,
+                      dtype, "sigmoid", "random", "dense"))
     return cases
 
 
@@ -1253,7 +1277,12 @@ def ssm_cases():
     decode shapes of hymba-1.5b (bf16 in and fp32 y, as the model calls it;
     and fp32), and a ragged sweep: N in {7, 16, 64}, S not a multiple of the
     64-step chunk, d_inner 3200 (not a multiple of the Pallas block_d of
-    256) and small ragged ones, y in x's type, a misaligned layout."""
+    256) and small ragged ones, y in x's type, a misaligned layout; then the
+    edges of the kernel's tiling: N in {1, 4, 17, 33, 64} at S = 1, one chunk
+    - 1, one chunk + 1 and two chunks + 7, in both types, d_inner 1, 31, 3201
+    and 32 in turn (32 takes the 16-byte copies where N allows them), y in
+    fp32 and in x's type in turn."""
+    from repro_torch.kernels.ssm_scan import geometry
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     from repro_torch.models.config import get_config
@@ -1269,6 +1298,13 @@ def ssm_cases():
                           dtype, dtype, "random", "dense"))
         cases.append((f"misaligned-{dtype_name(dtype)}", 2, 70, 96, 16, dtype, f32, "random",
                       "misaligned"))
+    for n in EDGE_N:
+        for i, s in enumerate(_edge_steps(geometry(n)[1])):
+            d_in = (1, 31, 3201, 32)[i]
+            for dtype in (f32, bf16):
+                out = (f32, dtype)[i % 2]
+                cases.append((f"edge-n{n}-s{s}-di{d_in}-{dtype_name(dtype)}-{dtype_name(out)}",
+                              2, s, d_in, n, dtype, out, "random", "dense"))
     return cases
 
 
@@ -1551,7 +1587,8 @@ def phase_scan_timings(errs, launches, recurrent):
     counted as one operation). At the decode shape the CUDA events time
     back-to-back calls that the host's launch path paces, so the row also
     gives the kernel's device time per call inside the traced decode steps
-    of the serving run."""
+    of the serving run; at the prefill shape it also gives the device time
+    by a replayed CUDA graph of the calls (``prefill_device_ms``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv_scan import rwkv_scan
@@ -1567,6 +1604,8 @@ def phase_scan_timings(errs, launches, recurrent):
         sets = [_rwkv_inputs(BATCH, s, h, n, f32, "model", "random", "dense", gen)
                 for _ in range(4)]
         ms[kind] = _time_ms(rwkv_scan, sets, 10 if s > 1 else 50)
+        if kind == "prefill":
+            device_ms = _graph_ms(rwkv_scan, sets, 3)
         plain_ms[kind] = _time_ms(ref.rwkv_scan_ref, sets[:1], 2 if s > 1 else 10)
         elems = BATCH * s * h * n
         nbytes[kind] = 5 * elems * 4 + h * n * 4 + 2 * BATCH * h * n * n * 4
@@ -1579,6 +1618,7 @@ def phase_scan_timings(errs, launches, recurrent):
     rows.append(_scan_row("rwkv_scan", "src/repro_torch/kernels/csrc/rwkv_scan.cu",
                           "src/repro/kernels/rwkv_scan.py:52", launches, errs, ms, plain_ms,
                           nbytes, flops, shapes))
+    rows[-1]["prefill_device_ms"] = device_ms
     # the scalar staging path (misaligned inputs) beside the 16-byte one
     sets = [_rwkv_inputs(BATCH, RWKV_PROMPT, h, n, f32, "model", "random", "misaligned", gen)
             for _ in range(4)]
@@ -1593,6 +1633,8 @@ def phase_scan_timings(errs, launches, recurrent):
     for kind, s in (("prefill", HYBRID_PROMPT), ("decode", 1)):
         sets = [_ssm_inputs(BATCH, s, di, n, bf16, "random", "dense", gen) for _ in range(4)]
         ms[kind] = _time_ms(lambda *a: ssm_scan(*a, out_dtype=f32), sets, 10 if s > 1 else 50)
+        if kind == "prefill":
+            device_ms = _graph_ms(lambda *a: ssm_scan(*a, out_dtype=f32), sets, 3)
         plain_ms[kind] = _time_ms(lambda *a: ref.ssm_scan_ref(*a, out_dtype=f32), sets[:1],
                                   2 if s > 1 else 10)
         # x, dt, B, C in bf16 and y in fp32; A, h0 and h_T in fp32
@@ -1605,6 +1647,7 @@ def phase_scan_timings(errs, launches, recurrent):
     rows.append(_scan_row("ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                           "src/repro/kernels/ssm_scan.py:50", launches, errs, ms, plain_ms,
                           nbytes, flops, shapes))
+    rows[-1]["prefill_device_ms"] = device_ms
     rows[-1]["decode_device_ms_traced"] = _traced_per_call(recurrent[HYBRID_ARCH], "ssm_scan",
                                                            HYBRID_ARCH)
     torch.cuda.empty_cache()

@@ -4,7 +4,7 @@ device time over split sizes.
 
 Run from the repository root on a machine with the CUDA toolkit and a card:
 
-    python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep] [--train]
+    python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep] [--train] [--scans]
 
 For each library NAME of ``repro_torch.kernels._build.KERNELS`` (default:
 ``decode_attention flash_attention``) it builds the library afresh, prints
@@ -12,7 +12,8 @@ ptxas's register, shared-memory and spill report for each of its kernels and
 the counts of the SASS opcodes that say how it moves data and multiplies:
 ``LDG``/``LDGSTS``/``UTMALDG`` (global loads: plain, ``cp.async``, TMA),
 ``LDL``/``STL`` (local memory: spills), ``HMMA``/``HGMMA`` (``mma.sync``,
-``wgmma``), ``SHFL``, ``MUFU`` (exponentials), ``BAR``/``SYNCS`` (barriers).
+``wgmma``), ``FFMA`` (fp32 multiply-adds), ``SHFL``, ``MUFU`` (exponentials),
+``BAR``/``SYNCS`` (barriers), ``STS``/``STG`` (shared and global stores).
 ``--dump DIR`` writes each library's whole ``cuobjdump -sass`` listing to
 ``DIR/NAME.sass``. ``--sweep`` times flash-decode (summed kernel durations in
 a ``torch.profiler`` trace) at the decode shapes of qwen3-1.7b (B=4, 1056
@@ -24,8 +25,11 @@ queued behind a sleep kernel and the summed kernel durations of a
 ``torch.profiler`` trace): the flash backward
 (B=2, S=1024, H=16, KH=8, D=128, causal, bf16) beside SDPA's backward, and
 the fused cross-entropy forward (T=2048, D=2048, V=151936, tied head, bf16)
-beside ``F.cross_entropy(x @ W^T, reduction="none")``. Checks against the
-plain versions are ``chip_smoke.py``'s.
+beside ``F.cross_entropy(x @ W^T, reduction="none")``. ``--scans`` times the
+two scans the same ways at the prefill and decode shapes of ``chip_smoke.py``:
+``rwkv_scan`` at rwkv6-7b's (B=4, S=1024 or 1, H=64, N=64, fp32) and
+``ssm_scan`` at hymba-1.5b's (B=4, S=1536 or 1, Di=3200, N=16, bf16 in, fp32
+y). Checks against the plain versions are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -36,8 +40,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-OPS = ("LDG", "LDGSTS", "UTMALDG", "LDS", "LDSM", "STS", "LDL", "STL", "HMMA", "HGMMA",
-       "SHFL", "MUFU", "BAR", "SYNCS")
+OPS = ("LDG", "LDGSTS", "UTMALDG", "LDS", "LDSM", "STS", "STG", "LDL", "STL", "HMMA", "HGMMA",
+       "FFMA", "SHFL", "MUFU", "BAR", "SYNCS")
 
 
 def report(names, dump):
@@ -135,16 +139,38 @@ def train_yardsticks():
     print("train yardsticks " + json.dumps(out))
 
 
+def scan_times():
+    """Device ms per call of the two scans at the main path's prefill and
+    decode shapes (``chip_smoke.py``'s inputs, four sets, cold)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.rwkv_scan import rwkv_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for kind, s in (("prefill", cs.RWKV_PROMPT), ("decode", 1)):
+        sets = [cs._rwkv_inputs(cs.BATCH, s, 64, 64, torch.float32, "model", "random", "dense",
+                                gen) for _ in range(4)]
+        out[f"rwkv_scan_{kind}"] = _device_times(rwkv_scan, sets)
+    for kind, s in (("prefill", cs.HYBRID_PROMPT), ("decode", 1)):
+        sets = [cs._ssm_inputs(cs.BATCH, s, 3200, 16, torch.bfloat16, "random", "dense", gen)
+                for _ in range(4)]
+        out[f"ssm_scan_{kind}"] = _device_times(
+            lambda *a: ssm_scan(*a, out_dtype=torch.float32), sets)
+    print("scan times " + json.dumps(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("names", nargs="*", default=["decode_attention", "flash_attention"])
     ap.add_argument("--dump", default=None)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--scans", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     report(args.names, args.dump)
-    if args.sweep or args.train:
+    if args.sweep or args.train or args.scans:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
@@ -152,6 +178,8 @@ def main() -> int:
         sweep_chunks()
     if args.train:
         train_yardsticks()
+    if args.scans:
+        scan_times()
     return 0
 
 

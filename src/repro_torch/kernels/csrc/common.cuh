@@ -1,6 +1,6 @@
-// Shared helpers of the kernels: 16-byte loads that widen to fp32, the scalar
-// conversions for the two element types the kernels take, and the bf16
-// tensor-core helpers (bf16 pair packing, mma.sync fragments).
+// Shared helpers of the kernels: 16-byte (and 8- or 4-byte) loads that widen to
+// fp32, the scalar conversions for the two element types the kernels take, and
+// the bf16 tensor-core helpers (bf16 pair packing, mma.sync fragments).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +34,22 @@ struct Elem<float> {
     out[2] = v.z;
     out[3] = v.w;
   }
+  // P (2 or 4) elements at p, aligned to P elements.
+  template <int P>
+  __device__ __forceinline__ static void load_small(const float* p, float* out) {
+    if constexpr (P == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      out[0] = v.x;
+      out[1] = v.y;
+      out[2] = v.z;
+      out[3] = v.w;
+    } else {
+      static_assert(P == 2, "load_small takes 2 or 4 elements");
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      out[0] = v.x;
+      out[1] = v.y;
+    }
+  }
 };
 
 template <>
@@ -52,7 +68,39 @@ struct Elem<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
+  template <int P>
+  __device__ __forceinline__ static void load_small(const __nv_bfloat16* p, float* out) {
+    static_assert(P == 2 || P == 4, "load_small takes 2 or 4 elements");
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
 };
+
+// The scans' staging of inputs that 16-byte copies cannot take: total elements,
+// src(p) read and dst(p, value) written, eight loads in flight a thread before
+// their stores.
+template <typename T, int kThreads, typename Src, typename Dst>
+__device__ __forceinline__ void copy_scalar(int total, Src src, Dst dst) {
+  constexpr int kBatch = 8;
+  for (int p0 = threadIdx.x; p0 < total; p0 += kThreads * kBatch) {
+    T tmp[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      tmp[u] = p < total ? src(p) : Elem<T>::zero();
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < total) dst(p, tmp[u]);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core helpers: mma.sync m16n8k16 and its operand packing

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -302,3 +303,98 @@ def ssm_scan_ref(x, dt, bmat, cmat, a, h0, *, out_dtype=None):
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y.to(out_dtype or x.dtype), h
+
+
+def scan_width(n):
+    """The state width the scan kernels compute at: n padded to 16, 32 or 64."""
+    return 16 if n <= 16 else 32 if n <= 32 else 64
+
+
+def _xor_sum(parts, masks):
+    """The sum over the last axis that xor shuffles form: for each mask in
+    turn, part i adds part i ^ mask (the lanes' own order of additions)."""
+    idx = torch.arange(parts.shape[-1])
+    for mask in masks:
+        parts = parts + parts[..., idx ^ mask]
+    return parts[..., 0]
+
+
+def _sequential(terms):
+    """Sum the last axis one term after another, as a thread's loop does."""
+    acc = torch.zeros_like(terms[..., 0])
+    for i in range(terms.shape[-1]):
+        acc = acc + terms[..., i]
+    return acc
+
+
+def rwkv_scan_tiled_ref(r, k, v, w, u, s0, *, chunk=32, groups=8):
+    """``rwkv_scan_ref`` in the decomposition of ``csrc/rwkv_scan.cu``.
+
+    The state is padded to ``scan_width(n)`` and its rows are split into
+    ``groups`` row groups of R = width / groups rows, each group's rows in
+    pieces of min(R, 4) (piece m of group q: rows m*groups*P + q*P + [0, P)).
+    ruk_t = sum_i r_t[i] u[i] k_t[i] is formed per chunk of ``chunk`` steps,
+    as 16-term partial sums combined by xor 1, 2 shuffles; each group's
+    partial sum_i r_i S[i, j] runs over its rows in order, the groups'
+    partials are combined by xor 16, 8, 4 shuffles (groups 4, 2, 1 apart), and
+    y_t[j] = v_t[j] ruk_t + that sum. fp32 math and state; returns what
+    ``rwkv_scan_ref`` returns."""
+    b, s, h, n = r.shape
+    nt = scan_width(n)
+    rows = nt // groups
+    piece = min(rows, 4)
+    order = torch.tensor([m * groups * piece + q * piece + e for q in range(groups)
+                          for m in range(rows // piece) for e in range(piece)])
+    pad = (0, nt - n)
+    rf, kf, vf, wf = (F.pad(t.float(), pad) for t in (r, k, v, w))
+    uf = F.pad(u.float(), pad)
+    st = F.pad(s0.float(), (0, nt - n, 0, nt - n))[:, :, order]   # rows in group order
+    rp, kp, wp = rf[..., order], kf[..., order], wf[..., order]
+    ys = []
+    for c0 in range(0, s, chunk):
+        terms = (rf[:, c0:c0 + chunk] * uf) * kf[:, c0:c0 + chunk]        # (B,C,H,NT)
+        parts = _sequential(terms.reshape(*terms.shape[:-1], nt // 16, 16))
+        ruk = _xor_sum(parts, [m for m in (1, 2) if m < nt // 16])
+        for t in range(terms.shape[1]):
+            rt = rp[:, c0 + t].reshape(b, h, groups, rows, 1)
+            part = _sequential((rt * st.reshape(b, h, groups, rows, nt)).transpose(-1, -2))
+            y = vf[:, c0 + t] * ruk[:, t, :, None] + _xor_sum(part.transpose(-1, -2), (4, 2, 1))
+            ys.append(y)
+            kv = kp[:, c0 + t, :, :, None] * vf[:, c0 + t, :, None, :]
+            st = wp[:, c0 + t, :, :, None] * st + kv
+    y = torch.stack(ys, dim=1)[..., :n] if ys else rf.new_zeros(r.shape)
+    s_t = torch.empty_like(st)
+    s_t[:, :, order] = st
+    return y.to(r.dtype), s_t[:, :, :n, :n].contiguous()
+
+
+def ssm_scan_tiled_ref(x, dt, bmat, cmat, a, h0, *, lanes=4, out_dtype=None):
+    """``ssm_scan_ref`` in the decomposition of ``csrc/ssm_scan.cu``.
+
+    The state is padded to ``scan_width(n)`` and split over ``lanes`` lanes a
+    channel, lane g holding columns m*16 + 4g + [0, 4); the decay is
+    2^(dt (A log2 e)), A scaled once as the kernel scales it; each lane's
+    partial sum_i h_i C_i runs over its columns in order and the lanes'
+    partials are combined by xor 1, then xor 2 shuffles. fp32 math and
+    state; returns what ``ssm_scan_ref`` returns."""
+    n = a.shape[1]
+    nt = scan_width(n)
+    order = torch.tensor([m * 16 + 4 * g + e for g in range(lanes)
+                          for m in range(nt // 16) for e in range(4)])
+    pad = (0, nt - n)
+    bf, cf = (F.pad(t.float(), pad)[..., order] for t in (bmat, cmat))
+    a2 = (F.pad(a.float(), pad) * 1.4426950408889634)[:, order]
+    h = F.pad(h0.float(), pad)[..., order]
+    xf, dtf = x.float(), dt.float()
+    b, di = h.shape[:2]
+    ys = []
+    for t in range(x.shape[1]):
+        h = (torch.exp2(dtf[:, t, :, None] * a2) * h
+             + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+        part = _sequential((h * cf[:, t, None, :]).reshape(b, di, lanes, nt // lanes))
+        ys.append(_xor_sum(part, (1, 2)))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+    h_t = torch.empty_like(h)
+    h_t[..., order] = h
+    return y.to(out_dtype or x.dtype), h_t[..., :n].contiguous()
+

@@ -1,11 +1,16 @@
 """The RWKV6 recurrence on the card: the wrapper of ``csrc/rwkv_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv_scan.py`` (``rwkv_scan``
--> ``_rwkv_kernel``). The kernel's note says what bounds it on an H100 and
-how its design answers that. The plain PyTorch version of the same function
-is ``ref.rwkv_scan_ref``; ``ops.rwkv_scan`` picks between the two by the
-tensors' device. Forward only: the reference has no backward kernel either
-(it differentiates its jnp scan).
+-> ``_rwkv_kernel``). The kernel's note says what bounds it on an H100 (shared
+loads and fp32 issue, with the bytes as the bound) and how its design answers
+that: the state in tiles of N/8 rows x 4 columns a thread, 2 N threads a
+(batch, head), Σ r u k formed once a step, chunks of 32 steps staged by
+double-buffered 16-byte ``cp.async`` copies (``geometry``). The plain PyTorch
+version of the same function is ``ref.rwkv_scan_ref``, and
+``ref.rwkv_scan_tiled_ref`` follows the kernel's split of the state and its
+order of sums; ``ops.rwkv_scan`` picks between the kernel and the plain version
+by the tensors' device. Forward only: the reference has no backward kernel
+either (it differentiates its jnp scan).
 """
 from __future__ import annotations
 
@@ -14,15 +19,22 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 N_MAX = 64
+
+
+def geometry(n: int) -> tuple[int, int]:
+    """(width, chunk) of the kernel's launch for head size n: the state width
+    the kernel computes at (``ref.scan_width``) and the time steps it stages a
+    pass. The kernel refuses a pair it does not build."""
+    return ref.scan_width(n), 32
 
 
 @functools.cache
 def _entry():
     fn = _build.load("rwkv_scan").rwkv_scan
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -57,10 +69,12 @@ def rwkv_scan(r, k, v, w, u, s0):
         return y, s_t.copy_(s0)
     pack = 16 // r.element_size()
     vec = n % pack == 0 and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w, y))
+    width, chunk = geometry(n)
     with torch.cuda.device(r.device):   # launch on the tensors' card
-        err = _entry()(_build.DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_t.data_ptr(),
-                       b, s, h, n, int(vec), _build.stream_handle(r.device))
+        err = _entry()(_build.DTYPE_CODES[r.dtype], width, chunk, r.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                       y.data_ptr(), s_t.data_ptr(), b, s, h, n, int(vec),
+                       _build.stream_handle(r.device))
     if err:
         raise RuntimeError(f"rwkv_scan: kernel launch failed with CUDA error {err}")
     rwkv_scan.launches += 1

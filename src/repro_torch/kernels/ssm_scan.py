@@ -1,13 +1,19 @@
 """The Mamba selective scan on the card: the wrapper of ``csrc/ssm_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py`` (``ssm_scan`` ->
-``_ssm_kernel``). The kernel's note says what bounds it on an H100 and how its
-design answers that. Unlike the Pallas kernel, it takes any ``d_inner`` (the
-last channel block is masked) and any sequence length, and it can write y in
-another type than x's (``out_dtype``): the model keeps y in fp32, as the
-reference's jnp scan does. The plain PyTorch version of the same function is
-``ref.ssm_scan_ref``; ``ops.ssm_scan`` picks between the two by the tensors'
-device. Forward only: the reference has no backward kernel either.
+``_ssm_kernel``). The kernel's note says what bounds it on an H100 (the
+dependent issue of its step loop, once every device-memory access has left
+it) and how its design answers that: each channel's state split over 4
+lanes, 16 channels (two warps) a block, chunks of 64 steps (32 at N > 32)
+staged by double-buffered 16-byte ``cp.async`` copies (``geometry``), the
+decay as one ``ex2.approx`` of dt A log2 e. Unlike the Pallas kernel, it takes
+any ``d_inner`` (the last channel block is masked) and any sequence length,
+and it can write y in another type than x's (``out_dtype``): the model keeps
+y in fp32, as the reference's jnp scan does. The plain PyTorch version of the
+same function is ``ref.ssm_scan_ref``, and ``ref.ssm_scan_tiled_ref`` follows
+the kernel's split of the state and its order of sums; ``ops.ssm_scan`` picks
+between the kernel and the plain version by the tensors' device. Forward
+only: the reference has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -16,15 +22,24 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 N_MAX = 64
+
+
+def geometry(n: int) -> tuple[int, int]:
+    """(width, chunk) of the kernel's launch for state size n: the state width
+    the kernel computes at (``ref.scan_width``) and the time steps it stages a
+    pass (32 at width 64, where 64 would pass 48 KB of static shared memory).
+    The kernel refuses a pair it does not build."""
+    width = ref.scan_width(n)
+    return width, 32 if width == 64 else 64
 
 
 @functools.cache
 def _entry():
     fn = _build.load("ssm_scan").ssm_scan
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -65,11 +80,15 @@ def ssm_scan(x, dt, bmat, cmat, a, h0, *, out_dtype=None):
         return y, h_t
     if s == 0:
         return y, h_t.copy_(h0)
+    width, chunk = geometry(n)
+    pack = 16 // x.element_size()
+    vec = di % pack == 0 and n % pack == 0 and all(t.data_ptr() % 16 == 0
+                                                   for t in (x, bmat, cmat))
     with torch.cuda.device(x.device):   # launch on the tensors' card
-        err = _entry()(_build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
-                       x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-                       a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, s, di, n,
-                       _build.stream_handle(x.device))
+        err = _entry()(_build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype], width,
+                       chunk, x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+                       cmat.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                       h_t.data_ptr(), b, s, di, n, int(vec), _build.stream_handle(x.device))
     if err:
         raise RuntimeError(f"ssm_scan: kernel launch failed with CUDA error {err}")
     ssm_scan.launches += 1
