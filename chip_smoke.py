@@ -97,7 +97,20 @@ Phases, in order; any failure exits non-zero at once:
      of a slot with layers), finite losses, step ms, peak memory, a traced
      step and the quantize pass's device time; then the dequant kernel's time
      at the training shape beside its bound and its plain version;
-  9. print the card's line, the ``kernels`` JSON line, then the result line.
+  9. fine-tune frozen-base LoRA adapters (rank 8) at full width through the
+     launcher: ``--lora-rank 8`` (one round) and ``--lora-rank 8
+     --microbatches 8 --pool-dtype int4 --grad-compress int8``, each with the
+     counts set to 0 just before and read just after and checked against the
+     plan, finite losses, the base (layers, embedding, final norm)
+     bit-identical to its seeded initial weights after the steps, every
+     adapter B moved, step ms, peak memory and a traced step (printed beside
+     the dense one-round step's); then the LoRA ring against the single
+     program on the merged weights at full width, 2 layers, adapters away
+     from B = 0 (fp32: loss rtol 1e-4, worst relative 5e-3; bf16: loss and
+     the whole adapter gradient within 2e-2 on the relative norm, and each
+     leaf no farther from the fp32 single program than 1.25x the bf16 single
+     program is);
+ 10. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -1752,6 +1765,19 @@ def _quant_step_cfg(plan, pool_dtype, grad_compress, lr=3e-4):
                       grad_compress=grad_compress, opt=OptConfig(lr=lr))
 
 
+def _ring_launches(plan, passes, quant):
+    """The training kernels' launches that ``plan`` predicts for ``passes``
+    rounds of the ring (steps x rounds): each of the N workers runs flash
+    forward once a layer in F and B slots (once in the fused slot's), the
+    backward once a layer, the cross-entropy once; the dequant kernel runs
+    once a promote of a slot with layers."""
+    n, layers, f = TRAIN_WORKERS, plan.n_layers, plan.fused.size
+    return {"flash_attention": passes * n * (2 * layers - f),
+            "flash_attention_bwd": passes * n * layers,
+            "fused_xent": passes * n,
+            "dequant_rows": passes * sum(1 for st in plan.stages if st.size) if quant else 0}
+
+
 def phase_quant_train(pool_dtype, grad_compress):
     """The launcher's multi-round run (prefetch on, R = 2) with the pool in
     ``pool_dtype`` and ``grad_compress`` deposits, the counts set to 0 just
@@ -1778,14 +1804,9 @@ def phase_quant_train(pool_dtype, grad_compress):
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     plan = out["plan"]
-    n, layers, f = TRAIN_WORKERS, plan.n_layers, plan.fused.size
     rounds = plan.rounds_for(QUANT_MICRO)
-    per_step = TRAIN_STEPS * rounds
     quant = pool_dtype != "none"
-    want = {"flash_attention": per_step * n * (2 * layers - f),
-            "flash_attention_bwd": per_step * n * layers,
-            "fused_xent": per_step * n,
-            "dequant_rows": per_step * sum(1 for st in plan.stages if st.size) if quant else 0}
+    want = _ring_launches(plan, TRAIN_STEPS * rounds, quant)
     label = f"pool {pool_dtype}, deposits {grad_compress}, R={rounds}"
     print(f"quantized train ({label}) launches: {launches} (the plan predicts {want}), peak "
           f"memory {peak / 1e9:.2f} GB, step ms {[x * 1e3 for x in out['step_s']]}")
@@ -1936,6 +1957,219 @@ def phase_dequant_timings(errs, launches):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: frozen-base LoRA fine-tuning
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8
+
+
+def _lora_cfg():
+    from repro_torch.models.lora import LoraConfig
+    return LoraConfig(rank=LORA_RANK)
+
+
+def phase_lora_train(pool_dtype="none", grad_compress="none", microbatches=None):
+    """The launcher's LoRA run (``--lora-rank 8``, prefetch on), the counts
+    set to 0 just before and read just after and checked against the plan;
+    finite losses; the base (layers, embedding, final norm) bit-identical to
+    the seeded initial weights after the steps; every adapter B moved off its
+    zero init. Then, on the final state, one warm step and one traced step."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_train_step, pad_pool
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.models.lora import at_path, target_leaf_paths
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adam import tree_leaves
+
+    counters = _quant_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    argv = ["--arch", ARCH, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+            "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--lora-rank", str(LORA_RANK), "--pool-dtype", pool_dtype,
+            "--grad-compress", grad_compress, "--steps", str(TRAIN_STEPS), "--log-every", "1",
+            "--device", DEVICE]
+    if microbatches:
+        argv += ["--microbatches", str(microbatches)]
+    out = train.main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    plan = out["plan"]
+    rounds = plan.rounds_for(microbatches or TRAIN_WORKERS)
+    want = _ring_launches(plan, TRAIN_STEPS * rounds, pool_dtype != "none")
+    label = f"LoRA r={LORA_RANK}, pool {pool_dtype}, deposits {grad_compress}, R={rounds}"
+    print(f"lora train ({label}) launches: {launches} (the plan predicts {want}), peak memory "
+          f"{peak / 1e9:.2f} GB, step ms {[x * 1e3 for x in out['step_s']]}")
+    check(launches == want, f"training launches ({label}) {launches} != the plan's {want}")
+    check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
+
+    state = out.pop("state")
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)   # the launcher's seed: base first
+    init = pad_pool(T.init_params(cfg, gen, device=DEVICE), cfg, TRAIN_WORKERS)
+    params = state["params"]
+    base_same = all(torch.equal(a, b) for key in ("layers", "embed", "final_norm")
+                    for a, b in zip(tree_leaves(init[key]), tree_leaves(params[key])))
+    del init
+    check(base_same, f"the frozen base changed under LoRA training ({label})")
+    paths = target_leaf_paths(params["layers"], _lora_cfg())
+    b_moved = all(bool(at_path(row, path)["B"].any())
+                  for row in params["lora"][:plan.n_layers] for path in paths)
+    check(b_moved, f"an adapter B did not move off its zero init ({label})")
+    check(set(state["opt"]["master"]) == {"lora"},
+          "the optimizer state holds more than the adapters")
+
+    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                          xent_chunk=min(256, TRAIN_SEQ), partition=plan, lora=_lora_cfg(),
+                          n_microbatches=microbatches, pool_dtype=pool_dtype,
+                          grad_compress=grad_compress, opt=OptConfig(lr=3e-4))
+    step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                         plan=plan, round_major=bool(microbatches))
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                         rounds=rounds if microbatches else 0, seed=9))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    box = {"s": state}
+    del state, params
+
+    def one():
+        box["s"], m = step(box["s"], batch)
+        check(math.isfinite(float(m["loss"])), "non-finite loss in the traced steps")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    traced = _trace(one, 1)
+    del box
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": [x * 1e3 for x in out["step_s"]],
+            "extra_warm_step_ms": warm * 1e3, "losses": out["losses"],
+            "peak_memory_gb": peak / 1e9, "traced_step": traced,
+            "base_bit_identical": base_same, "adapter_b_moved": b_moved}
+
+
+LORA_BF16_TRUTH_RATIO = 1.25
+
+
+def phase_lora_ring_vs_single():
+    """The frozen ring's adapter grads (kernels) against ``torch.autograd.grad``
+    of the single program on the merged weights (the plain versions), at full
+    width, 2 layers, one layer a slot, adapters randomised away from B = 0.
+    fp32: loss rtol 1e-4, worst max-abs relative error 5e-3. bf16: the loss
+    and the whole adapter gradient within 2e-2 on the relative norm; and, per
+    leaf, the ring no farther from the fp32 single program on the same weights
+    than 1.25 times the bf16 single program's own distance from it. Per leaf,
+    two bf16 computations sit ~2e-2 apart while each is 3.1-3.5e-2 from the
+    fp32 one (an H100 at 700 W, three seeds; PERF.md §6), so a per-leaf 2e-2
+    between them measures bf16 rounding, not the kernels; the distance to
+    fp32 does."""
+    out = {d: _lora_ring_vs_single(d) for d in ("float32", "bfloat16")}
+    f32, b16 = out["float32"], out["bfloat16"]
+    check(f32["loss_rel"] <= 1e-4, "LoRA ring loss disagrees with the single program (fp32)")
+    check(f32["worst_rel"] < 5e-3, "LoRA ring grads disagree with the single program (fp32)")
+    check(b16["loss_rel"] <= BWD_REL_BF16,
+          "LoRA ring loss disagrees with the single program (bf16)")
+    check(b16["tree_norm_rel"] <= BWD_REL_BF16,
+          "LoRA ring grads disagree with the single program (bf16)")
+    check(b16["worst_truth_ratio"] <= LORA_BF16_TRUTH_RATIO,
+          "LoRA ring grads (bf16) are farther from the fp32 single program than the bf16 "
+          "single program is")
+    return out
+
+
+def _merged_oracle(params, adapters, lcfg, batch, cfg):
+    """Loss and adapter grads of the single program on the merged weights."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lora import merge_params
+    from repro_torch.optim.adam import tree_leaves, tree_map
+
+    adapters = tree_map(lambda a: a.detach().clone().requires_grad_(), adapters)
+    leaves = tree_leaves(adapters)
+    loss = T.loss_fn(merge_params(params, adapters, lcfg), batch, cfg, remat=False)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _lora_ring_vs_single(dtype_label):
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_grads_fn
+    from repro_torch.core.plan import plan_from_config, uniform_partition
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.models.lora import init_adapters
+    from repro_torch.optim.adam import tree_leaves, tree_map
+
+    dtype = getattr(torch, dtype_label)
+    lcfg = _lora_cfg()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(2), lora=lcfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    params = T.init_params(cfg, gen, dtype=dtype, device=DEVICE)
+    # B away from its zero init, or every A grad is exactly zero
+    adapters = tree_map(lambda a: (torch.randn(a.shape, generator=gen, device=DEVICE) * 0.05)
+                        .to(dtype), init_adapters(gen, params["layers"], lcfg))
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_WORKERS, 256), generator=gen, device=DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_WORKERS, 256), generator=gen, device=DEVICE)
+    labels[:, ::5] = -100
+    batch = {"tokens": tokens, "labels": labels}
+    ring_fn = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan, lora=lcfg)
+    counters = _train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    grads, loss, _ = ring_fn(dict(params, lora=adapters), batch)
+    ring = {k: fn.launches for k, fn in counters.items()}
+    check(set(grads) == {"lora"}, f"the LoRA ring returned {sorted(grads)}")
+    check(all(ring[k] > before[k] for k in counters),
+          f"the LoRA ring did not run through every training kernel ({dtype_label})")
+    floor = truth = None
+    with _plain_ops():
+        if dtype == torch.bfloat16:
+            floor = tree_leaves(ring_fn(dict(params, lora=adapters), batch)[0])
+        want_loss, want = _merged_oracle(params, adapters, lcfg, batch, cfg)
+        if dtype == torch.bfloat16:
+            truth = _merged_oracle(_cast(params, torch.float32),
+                                   _cast(adapters, torch.float32), lcfg, batch, cfg)[1]
+    check({k: fn.launches for k, fn in counters.items()} == ring,
+          "the single-program oracle launched a kernel")
+    got = tree_leaves(grads)
+    check(len(got) == len(want), "ring grads and single-program grads differ in structure")
+    check(all(bool(w.abs().max() > 0) for w in want), "a reference adapter grad is zero")
+    names = _leaf_names(adapters)
+    worst = max(((g.float() - w.float()).abs().max() / (w.float().abs().max() + 1e-6)).item()
+                for g, w in zip(got, want))
+    norms = sorted(((_rel(g, w), n) for g, w, n in zip(got, want, names)), reverse=True)
+    flat = lambda xs: torch.cat([x.float().reshape(-1) for x in xs])   # noqa: E731
+    rel_loss = abs(float(loss) - want_loss) / abs(want_loss)
+    out = {"loss_rel": rel_loss, "worst_rel": worst,
+           "tree_norm_rel": _rel(flat(got), flat(want)), "worst_norm_rel": norms[0][0],
+           "worst_leaves": {n: e for e, n in norms[:3]}}
+    if floor is not None:
+        out["plain_ring_worst_norm_rel"] = max(_rel(g, w) for g, w in zip(floor, want))
+        ratios = sorted(((_rel(g, t) / _rel(w, t), n, _rel(g, t), _rel(w, t))
+                         for g, w, t, n in zip(got, want, truth, names)), reverse=True)
+        out["worst_truth_ratio"] = ratios[0][0]
+        out["worst_truth_leaf"] = {"leaf": ratios[0][1], "ring_vs_fp32": ratios[0][2],
+                                   "single_bf16_vs_fp32": ratios[0][3]}
+        out["ring_vs_fp32_worst"] = max(r[2] for r in ratios)
+        out["single_bf16_vs_fp32_worst"] = max(r[3] for r in ratios)
+    print(f"LoRA ring vs single program, {dtype_label}, full width, 2 layers, r={lcfg.rank}, "
+          f"plan {plan.describe()}: loss {float(loss):.6f} vs {want_loss:.6f} (rel "
+          f"{rel_loss:.2e}), worst relative adapter grad error {worst:.3e} (max abs), "
+          f"{norms[0][0]:.3e} (norm, {norms[0][1]}) over {len(got)} leaves, "
+          f"{out['tree_norm_rel']:.3e} over all of them; "
+          + json.dumps({k: v for k, v in out.items() if k not in ("loss_rel", "worst_rel")}))
+    del params, adapters, grads, want, floor, truth
+    torch.cuda.empty_cache()
+    return out
+
+
 # The device kernels each traced wrapper launches, by name in a trace.
 TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
                                        "decode_combine_kernel"),
@@ -2039,9 +2273,12 @@ def main() -> int:
     bit_identity = phase_ring_bit_identity()
     quant = {pool: phase_quant_train(pool, compress)
              for pool, compress in (("none", "none"), ("int8", "int8"), ("int4", "int8"))}
+    lora = {"lora_r8": phase_lora_train(),
+            "lora_r8_int4_R2": phase_lora_train("int4", "int8", QUANT_MICRO)}
+    lora_ring = phase_lora_ring_vs_single()
     for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
-    for q in quant.values():
+    for q in [*quant.values(), *lora.values()]:
         for name, n in q["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for row in rows:
@@ -2062,6 +2299,11 @@ def main() -> int:
     print("quantized train timings " + json.dumps(
         {"ring_bit_identity": bit_identity,
          **{f"pool_{pool}_R{QUANT_MICRO // TRAIN_WORKERS}": q for pool, q in quant.items()}}))
+    dense_warm = sorted(out["step_s"][1:])
+    print("lora train timings " + json.dumps(
+        {**lora, "ring_vs_single": lora_ring,
+         "dense_one_round": {"warm_step_ms_median": dense_warm[len(dense_warm) // 2] * 1e3,
+                             "peak_memory_gb": peak / 1e9, "traced_step": traced}}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

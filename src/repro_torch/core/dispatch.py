@@ -39,7 +39,19 @@ scales that the uploads ship and the dequant kernel turns back into a block
 at promote time. Deposits are exact fp32, or error-feedback int8
 (``grad_compress="int8"``) with the residual beside the optimizer state.
 
-Not ported yet, and refused by name: LoRA and ``g0 != 0``.
+With a ``LoraConfig`` (``lora``) the step runs the frozen-base mode: the
+dense ring is read-only and an adapter ring (``params["lora"]``, a list of
+per-layer ``{"A", "B"}`` dicts) travels beside it, gathered whole at every
+injection even under prefetch. Every slot computes on the merged weights W +
+(alpha/r) B@A, formed per layer inside the slot (under ``torch.no_grad()`` in
+F slots, under autograd in the FB and B slots), and differentiates with
+respect to the adapter block and its input only: the gradient buffer, the
+deposits and the optimizer state are adapter-shaped, no gradient of the base,
+the embedding, the final norm or the head is formed, and the returned grads
+are exactly ``{"lora": ...}``. The quantized codec still quantizes the base
+pool once a step; the adapters stay in their own precision.
+
+Not ported yet, and refused by name: ``g0 != 0``.
 """
 from __future__ import annotations
 
@@ -53,7 +65,9 @@ from repro_torch.core.ring import (OneCardTransport, RingMachine, StepAccum, blo
                                    gbuf_add, zeros_block)
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.adam import apply_updates, init_opt_state, tree_leaves, tree_map
+from repro_torch.models.lora import init_adapters, param_mask
+from repro_torch.optim.adam import (apply_updates, init_opt_state, merge_trainable,
+                                    trainable_leaves, tree_leaves, tree_map)
 
 _LATER = "is not ported yet (ROADMAP.md, Queue 1: {})"
 
@@ -62,9 +76,7 @@ def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} " + _LATER.format(item))
 
 
-def _check_options(*, lora=None, pool_dtype="none", grad_compress="none", g0=0):
-    if lora is not None:
-        _refuse("LoRA (lora)", "LoRA")
+def _check_options(*, pool_dtype="none", grad_compress="none", g0=0):
     if g0 != 0:
         _refuse(f"ring rotation g0={g0}", "supervisor")
     if pool_dtype not in ("none", *POOL_DTYPE_BITS):
@@ -164,10 +176,13 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     ``prefetch_program`` switches injection to the chunked double-buffered
     standby; ``pool_dtype`` streams the pool quantized; ``grad_compress``
     ("int8") runs every deposit through the error-feedback codec, with
-    ``grad_residual`` (fp32, a list of layer dicts shaped like the pool) as
-    the carried error, updated in place. ``transport`` moves payloads
-    between the logical workers (``OneCardTransport`` by default)."""
-    _check_options(lora=lora, pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
+    ``grad_residual`` (fp32, a list of layer dicts shaped like the pool, or
+    like the adapters with ``lora``) as the carried error, updated in place.
+    ``lora`` (a ``LoraConfig``) runs the frozen-base mode on
+    ``params["lora"]`` and returns ``{"lora": grads}``. ``transport`` moves
+    payloads between the logical workers (``OneCardTransport`` by default)."""
+    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
+    frozen = lora is not None
     compress = grad_compress != "none"
     if compress and grad_residual is None:
         raise ValueError("grad_compress needs the grad_residual tree (init_roundpipe_state "
@@ -187,10 +202,13 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     rm = RingMachine(cfg=cfg, plan=plan, n_workers=n, l_pad=l_pad,
                      transport=transport or OneCardTransport(n), xent_chunk=xent_chunk,
                      pool_template=params["layers"][0], prefetch_program=prefetch_program,
-                     pool_dtype=pool_dtype)
+                     pool_dtype=pool_dtype, lora=lora)
     pool = rm.shards(params["layers"])
+    a_pool = rm.shards(params["lora"]) if frozen else None
     A = StepAccum
     head_w = T.lm_head_weights(params, cfg)
+    if frozen:                  # nothing of the base takes part in autograd
+        head_w, fnorm = head_w.detach(), tree_map(torch.Tensor.detach, params["final_norm"])
     tokens, labels = batch["tokens"], batch["labels"]
     if not multi:
         tokens, labels = tokens[None], labels[None]
@@ -212,14 +230,16 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     stash = [[None] * (l_total + 1) for _ in range(n)]
     grad_carry = [None] * n
     ring = [None] * n                   # traveling blocks
+    a_ring = [None] * n                 # traveling adapter blocks (frozen base)
     gbuf = [None] * n                   # their traveling gradient buffers
     grad_shards = [[None] * rm.per for _ in range(n)]
     res_shards = rm.shards(grad_residual) if compress else None
     loss_sum = A.zeros((), torch.float32, dev)
     tok_count = A.zeros((), torch.int64, dev)
-    embed_grad = A.zeros(params["embed"].shape, torch.float32, dev)
-    head_grad = A.zeros(head_w.shape, torch.float32, dev)
-    fnorm_grad = A.tree_zeros(params["final_norm"], torch.float32)
+    if not frozen:
+        embed_grad = A.zeros(params["embed"].shape, torch.float32, dev)
+        head_grad = A.zeros(head_w.shape, torch.float32, dev)
+        fnorm_grad = A.tree_zeros(params["final_norm"], torch.float32)
 
     # ---- codec: one quantization pass per step, and the quant-aware calls ----
     quant = pool_dtype != "none"
@@ -241,13 +261,39 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     def _promote(stand, spec):
         return rm.dequant_block(*stand, spec) if quant else rm.promote_standby(stand, spec)
 
-    def do_plain(w, spec, blk, slot_i, ri):
+    def do_plain(w, spec, blk, ablk, slot_i, ri):
         with torch.no_grad():
             x = x_emb[w][ri] if slot_i == 0 else act[w]
             for k, lw in enumerate(blk):
                 stash[w][spec.layers[k]] = x
-                x = T.layer_forward(x, lw, cfg)
+                x = rm.layer_fwd(x, lw, None if ablk is None else ablk[k])
             act[w] = x
+
+    def do_fused_frozen(w, blk, ablk, slot_i, ri):
+        """The FB slot on the merged weights, differentiated with respect to
+        the adapter block and the slot's input only."""
+        x_in = x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
+        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
+        with torch.enable_grad():
+            ablk_l, x_l = _leaf(ablk), x_in.detach().requires_grad_()
+            tot, cnt = rm.fused_loss(base, fnorm, head_w, x_l, lab_w[w][ri], ablk_l)
+            grads = torch.autograd.grad(tot, tree_leaves(ablk_l) + [x_l])
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
+        A.add(loss_sum, tot.detach())
+        A.add(tok_count, cnt)
+        grad_carry[w] = grads[-1].float()
+
+    def do_bwd_frozen(w, spec, blk, ablk):
+        """A B slot recomputed from the stash on the merged weights; grads
+        with respect to the adapter block and the block's input."""
+        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
+        with torch.enable_grad():
+            ablk_l, x_l = _leaf(ablk), stash[w][spec.start].detach().requires_grad_()
+            y = rm.stage_fwd(base, x_l, ablk_l)
+            grads = torch.autograd.grad(y, tree_leaves(ablk_l) + [x_l],
+                                        grad_outputs=grad_carry[w].to(y.dtype))
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
+        grad_carry[w] = grads[-1].float()
 
     def do_fused(w, spec, blk, slot_i, ri):
         x_in = x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
@@ -294,6 +340,8 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
         t = rec.t
         ring = rm.shift(ring)
         gbuf = rm.shift(gbuf)
+        if frozen:
+            a_ring = rm.shift(a_ring)
         if rec.entry is not None:
             spec = slots[rec.entry[1]]
             if standby is not None:
@@ -305,18 +353,28 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
                     standby.upload(rec.upload[0])
             else:
                 ring[0] = _assemble(spec)
-            gbuf[0] = None if spec.kind == "F" else zeros_block(ring[0], ring_grad_dtype)
+            if frozen:
+                # adapters are ~100-1000x smaller than the block: gathered
+                # whole at injection, even under prefetch
+                a_ring[0] = rm.assemble_block(spec, a_pool)
+            gbuf[0] = None if spec.kind == "F" else zeros_block(
+                a_ring[0] if frozen else ring[0], ring_grad_dtype)
         for w in range(n):
             fb = t - w
             if not 0 <= fb < live:
                 continue
             ri, slot_i = divmod(fb, s_total)
-            spec, blk = slots[slot_i], ring[w]
+            spec, blk, ablk = slots[slot_i], ring[w], a_ring[w]
             # a named range per slot kind: a profiler trace reads each kind's
             # device time from it
             with record_function(f"roundpipe.{spec.kind}"):
                 if slot_i < sf:
-                    do_plain(w, spec, blk, slot_i, ri)
+                    do_plain(w, spec, blk, ablk, slot_i, ri)
+                elif frozen:
+                    if slot_i == sf:
+                        do_fused_frozen(w, blk, ablk, slot_i, ri)
+                    else:
+                        do_bwd_frozen(w, spec, blk, ablk)
                 elif slot_i == sf:
                     do_fused(w, spec, blk, slot_i, ri)
                 else:
@@ -337,11 +395,14 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
         raise RuntimeError("a layer received no gradient deposit: the plan does not "
                            "cover every layer with a fused or backward slot")
     scale = 1.0 / torch.clamp(tok_count.float(), min=1.0)
-    grads = {"embed": embed_grad, "layers": layer_grads, "final_norm": fnorm_grad}
-    if "lm_head" in params:
-        grads["lm_head"] = head_grad
-    else:                                          # tied embeddings
-        grads["embed"] = embed_grad.add_(head_grad.T)
+    if frozen:      # exactly the adapters: no base gradient was ever formed
+        grads = {"lora": layer_grads}
+    else:
+        grads = {"embed": embed_grad, "layers": layer_grads, "final_norm": fnorm_grad}
+        if "lm_head" in params:
+            grads["lm_head"] = head_grad
+        else:                                      # tied embeddings
+            grads["embed"] = embed_grad.add_(head_grad.T)
     grads = tree_map(lambda g: g.mul_(scale), grads)
     if compress:
         return grads, loss_sum * scale, tok_count, grad_residual
@@ -374,17 +435,21 @@ def pool_rows(cfg: ModelConfig, n_workers: int) -> int:
 
 
 def pad_pool(params, cfg: ModelConfig, n_workers: int):
-    """``params`` with the layer list padded by zero layers to ``pool_rows``
-    rows, so each worker owns an equal shard. Padding rows are never part of
-    a slot, get zero gradients and stay zero under the optimizer."""
+    """``params`` with the layer list (and the adapter list ``"lora"``, when
+    present) padded by zero rows to ``pool_rows`` rows, so each worker owns
+    an equal shard. Padding rows are never part of a slot, get zero
+    gradients and stay zero under the optimizer."""
     l_pad = pool_rows(cfg, n_workers)
-    layers = params["layers"]
-    if len(layers) == l_pad:
-        return params
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers for a model of {cfg.n_layers}")
-    return dict(params, layers=list(layers)
-                + [tree_map(torch.zeros_like, layers[0]) for _ in range(l_pad - cfg.n_layers)])
+    out = dict(params)
+    for key in ("layers", "lora"):
+        rows = params.get(key)
+        if rows is None or len(rows) == l_pad:
+            continue
+        if len(rows) != cfg.n_layers:
+            raise ValueError(f"{len(rows)} {key} rows for a model of {cfg.n_layers} layers")
+        out[key] = list(rows) + [tree_map(torch.zeros_like, rows[0])
+                                 for _ in range(l_pad - cfg.n_layers)]
+    return out
 
 
 def _plan_for(cfg, n_workers, plan):
@@ -411,8 +476,8 @@ def _ring_fn(cfg, n_workers, plan, rounds, **kw):
     """``f(params, batch, residual)`` running ``roundpipe_forward_backward``
     for ``plan`` (validated, with its prefetch program) over batches whose
     leaves are round-major when ``rounds`` is set."""
-    _check_options(lora=kw.pop("lora", None), pool_dtype=kw["pool_dtype"],
-                   grad_compress=kw["grad_compress"], g0=kw.pop("g0", 0))
+    _check_options(pool_dtype=kw["pool_dtype"], grad_compress=kw["grad_compress"],
+                   g0=kw.pop("g0", 0))
     plan = _plan_for(cfg, n_workers, plan)
     if kw["prefetch_program"] is not None:
         kw["prefetch_program"].validate(plan)
@@ -432,7 +497,9 @@ def build_roundpipe_grads_fn(cfg: ModelConfig, n_workers: int, plan, *, xent_chu
     ``n_layers`` layers. ``n_microbatches`` (M = R*N) runs R rounds: the flat
     batch splits into R leading round groups, and the grads accumulate over
     all M micro-batches. ``prefetch_program`` selects the chunked standby
-    injection, ``pool_dtype`` the quantized pool. With ``grad_compress="int8"``
+    injection, ``pool_dtype`` the quantized pool; ``lora`` the frozen-base
+    mode (params carry ``"lora"``, padded or not; the grads are ``{"lora":
+    ...}`` with ``n_layers`` rows). With ``grad_compress="int8"``
     the call is ``f(params, batch, residual) -> (grads, loss, tokens,
     residual)``, the residual updated in place."""
     rounds = None if n_microbatches is None else plan.rounds_for(n_microbatches)
@@ -462,7 +529,9 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
     ...) batches as they are, where the default reshapes flat (B, ...) ones.
     ``step_cfg.pool_dtype`` streams the pool quantized; ``step_cfg.grad_compress``
     runs the deposits through the error-feedback codec with the residual in
-    ``state["opt"]["grad_residual"]``.
+    ``state["opt"]["grad_residual"]``. ``step_cfg.lora`` trains the adapters
+    only: the optimizer updates ``trainable_leaves(params, param_mask(params))``
+    and the frozen base passes through untouched (the same tensors).
 
     The train state keeps the pool padded at rest (``init_roundpipe_state``).
     Returns ``(step, plan)``; ``step(state, batch) -> (state, metrics)``
@@ -491,9 +560,11 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
         program = plan.prefetch_program(
             chunk_limit=getattr(step_cfg, "prefetch_chunk_limit", None))
     compress = getattr(step_cfg, "grad_compress", "none") != "none"
+    lora = getattr(step_cfg, "lora", None)
+    pool_key = "layers" if lora is None else "lora"     # the pool that gets gradients
     ring = _ring_fn(cfg, n_workers, plan, rounds, xent_chunk=step_cfg.xent_chunk,
                     kv_chunk=step_cfg.kv_chunk, ring_grad_dtype=step_cfg.accum_dtype,
-                    prefetch_program=program, lora=getattr(step_cfg, "lora", None),
+                    prefetch_program=program, lora=lora,
                     pool_dtype=getattr(step_cfg, "pool_dtype", "none"),
                     grad_compress=getattr(step_cfg, "grad_compress", "none"),
                     g0=getattr(step_cfg, "g0", 0), transport=transport)
@@ -506,11 +577,17 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
         residual = opt_in.pop("grad_residual", None)
         out = ring(params, batch, residual)
         grads, loss, tokens = out[:3]
-        pad = params["layers"][cfg.n_layers:]          # padding rows: zero gradients
-        grads["layers"] += [tree_map(torch.zeros_like, p) for p in pad]
+        pad = params[pool_key][cfg.n_layers:]          # padding rows: zero gradients
+        grads[pool_key] += [tree_map(torch.zeros_like, p) for p in pad]
         with record_function("roundpipe.apply_updates"):
-            new_params, new_opt, metrics = apply_updates(opt_in, grads, step_cfg.opt,
-                                                         param_like=params)
+            if lora is None:
+                new_params, new_opt, metrics = apply_updates(opt_in, grads, step_cfg.opt,
+                                                             param_like=params)
+            else:       # the adapters only; the frozen base passes through
+                mask = param_mask(params)
+                new_tr, new_opt, metrics = apply_updates(
+                    opt_in, grads, step_cfg.opt, param_like=trainable_leaves(params, mask))
+                new_params = merge_trainable(params, new_tr, mask)
         if compress:
             new_opt = dict(new_opt, grad_residual=out[3])
         metrics = dict(metrics, loss=loss, tokens=tokens)
@@ -522,17 +599,25 @@ def init_roundpipe_state(generator, cfg: ModelConfig, step_cfg, n_workers: int |
                          *, dtype=torch.bfloat16, device="cuda"):
     """Fresh roundpipe train state from a seeded ``torch.Generator`` on
     ``device``; with ``n_workers`` the pool is padded to shard evenly. With
-    ``step_cfg.grad_compress`` the optimizer state carries the error-feedback
-    residual ``opt["grad_residual"]``: fp32 zeros shaped like the (padded)
-    pool."""
-    if getattr(step_cfg, "lora", None) is not None:
-        _refuse("LoRA (lora)", "LoRA")
+    ``step_cfg.lora`` the params gain fresh adapters (``"lora"``, zero B, so
+    the first step computes exactly the base model), drawn from the same
+    generator after the base, and the optimizer state covers the adapters
+    only. With ``step_cfg.grad_compress`` the optimizer state carries the
+    error-feedback residual ``opt["grad_residual"]``: fp32 zeros shaped like
+    the (padded) pool that gets gradients, the adapters' under LoRA."""
+    lora = getattr(step_cfg, "lora", None)
     params = T.init_params(cfg, generator, dtype=dtype, device=device)
+    if lora is not None:
+        params["lora"] = init_adapters(generator, params["layers"], lora)
     if n_workers is not None:
         params = pad_pool(params, cfg, n_workers)
-    opt = init_opt_state(params, step_cfg.opt)
+    if lora is None:
+        opt = init_opt_state(params, step_cfg.opt)
+    else:
+        opt = init_opt_state(trainable_leaves(params, param_mask(params)), step_cfg.opt)
     if getattr(step_cfg, "grad_compress", "none") != "none":
+        pool = params["layers" if lora is None else "lora"]
         opt["grad_residual"] = [tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
                                                                device=a.device), p)
-                                for p in params["layers"]]
+                                for p in pool]
     return {"params": params, "opt": opt}

@@ -561,7 +561,7 @@ def default_layer_costs(cfg, *, head_stage: bool = True,
     to its parameter count (flops proxy at fixed batch), head pseudo-layer
     proportional to ``d_model * vocab_size``.  Weight bytes assume bf16.
 
-    ``lora`` (a :class:`repro.models.lora.LoraConfig`) switches on the
+    ``lora`` (a :class:`repro_torch.models.lora.LoraConfig`) switches on the
     frozen-base split byte accounting: uploads stay dense (the ring still
     carries full blocks) but ``trainable_bytes`` — the gradient-deposit and
     optimizer-copy download traffic — shrinks to the adapter factors, and
@@ -571,9 +571,6 @@ def default_layer_costs(cfg, *, head_stage: bool = True,
     the quantized code+scale payload (``LayerCost.upload_bytes``); the
     replicated LM head is never ring-streamed, so its budget entry stays at
     the dense bytes either way."""
-    if lora is not None:
-        raise NotImplementedError(
-            "LoRA cost accounting is not ported yet (ROADMAP.md, Queue 1, item 8)")
     from repro_torch.models.transformer import init_layer
 
     def count(node):    # leaves nest two deep (attn.w_q) or three (rwkv.time.w_r)
@@ -582,14 +579,19 @@ def default_layer_costs(cfg, *, head_stage: bool = True,
     # one layer on the meta device: shapes only, nothing allocated
     layer_params = count(init_layer(None, cfg, device="meta"))
     scale = 1.0 / max(layer_params, 1)
+    trainable = None
+    if lora is not None:
+        from repro_torch.models.lora import adapter_params_per_layer
+        trainable = 2 * adapter_params_per_layer(cfg, lora)
     upload = quant_upload_bytes(layer_params, pool_dtype)
     out = [LayerCost(1.0, grad_ratio, weight_bytes=2 * layer_params,
-                     upload_bytes=upload)
+                     trainable_bytes=trainable, upload_bytes=upload)
            for _ in range(cfg.n_layers)]
     if head_stage:
         head_params = cfg.d_model * cfg.vocab_size
         c = head_params * scale
-        out.append(LayerCost(c, c * grad_ratio, weight_bytes=2 * head_params))
+        out.append(LayerCost(c, c * grad_ratio, weight_bytes=2 * head_params,
+                             trainable_bytes=0 if lora is not None else None))
     return out
 
 

@@ -2,7 +2,7 @@
 that moves blocks between logical workers.
 
 The PyTorch counterpart of the sync subset of ``repro/core/ring.py``:
-``RingMachine.shift``, ``stage_fwd``, ``fused_loss``, ``assemble_block``,
+``RingMachine.shift``, ``layer_fwd``, ``stage_fwd``, ``fused_loss``, ``assemble_block``,
 ``deposit_plain`` and ``deposit_ef``; the dense payload codec of the prefetch
 path (``chunk_elem_range``, ``upload_slot``, ``promote_standby``,
 ``zeros_standby``); the quantized codec (``quantize_pool``,
@@ -23,7 +23,10 @@ A block is a list of per-layer parameter dicts, one per real layer of the
 slot. Eager PyTorch knows each slot's size, so there are no padding rows and
 no identity masks: ``stage_fwd`` folds exactly the slot's layers, a gradient
 buffer holds exactly one row per layer of its block, and a quantized slot
-dequantizes exactly its own rows.
+dequantizes exactly its own rows. In the frozen-base LoRA mode an adapter
+block (a list of per-layer adapter dicts) rides beside each dense block: it
+is gathered whole from the adapter pool's owners, hops through the same
+transport calls, and the slot computations run on the merged weights.
 
 Flat rows (a streamed chunk's byte range, a quantized pool row) lay a
 layer's leaves end to end in the reference's flatten order, which sorts dict
@@ -44,6 +47,7 @@ from repro_torch.kernels.dequant import quantize_rows
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm
+from repro_torch.models.lora import merge_layers
 from repro_torch.optim.adam import tree_map
 from repro_torch.optim.compress import compress_int8, decompress_int8
 
@@ -160,11 +164,12 @@ class RingMachine:
     flatten order, shapes and dtypes, and so the flat row layout that chunks
     and quantized rows index. ``prefetch_program`` supplies the per-slot
     chunk tables of the standby uploads; ``pool_dtype`` selects the quantized
-    codec ("int8" or "int4") or none."""
+    codec ("int8" or "int4") or none; ``lora`` (a ``LoraConfig``) is the
+    adapters' scale for the merged weights of the frozen-base mode."""
 
     def __init__(self, *, cfg: ModelConfig, plan, n_workers: int, l_pad: int, transport,
                  pool_template, xent_chunk: int = 256, prefetch_program=None,
-                 pool_dtype: str = "none"):
+                 pool_dtype: str = "none", lora=None):
         if l_pad % n_workers:
             raise ValueError(f"pool of {l_pad} rows over {n_workers} workers")
         if pool_dtype != "none" and pool_dtype not in POOL_DTYPE_BITS:
@@ -180,6 +185,7 @@ class RingMachine:
         self.xent_chunk = xent_chunk
         self.prefetch_program = prefetch_program
         self.pool_dtype = pool_dtype
+        self.lora = lora
         self.kmax = plan.max_block
         self.template = pool_template
         leaves = flat_leaves(pool_template)
@@ -208,16 +214,25 @@ class RingMachine:
         return self.transport.shift(entries)
 
     # ---- stage compute -----------------------------------------------------
-    def stage_fwd(self, block, x):
-        """Fold a block's layers over x."""
-        for lw in block:
-            x = T.layer_forward(x, lw, self.cfg)
+    def layer_fwd(self, x, lw, aw=None):
+        """One layer over x; with its adapter row ``aw``, on the merged
+        weights W + (alpha/r) B@A, formed here so that autograd reaches the
+        adapters through them (and freed with the layer's activations)."""
+        if aw is not None:
+            lw = merge_layers(lw, aw, self.lora)
+        return T.layer_forward(x, lw, self.cfg)
+
+    def stage_fwd(self, block, x, ablock=None):
+        """Fold a block's layers over x (merged with ``ablock``'s adapters
+        when given)."""
+        for k, lw in enumerate(block):
+            x = self.layer_fwd(x, lw, None if ablock is None else ablock[k])
         return x
 
-    def fused_loss(self, block, fnorm, hw, x, labels_cur):
+    def fused_loss(self, block, fnorm, hw, x, labels_cur, ablock=None):
         """The FB slot's forward: the deepest body block (possibly empty),
         the final norm and the LM-head cross-entropy -> (loss sum, count)."""
-        x = self.stage_fwd(block, x)
+        x = self.stage_fwd(block, x, ablock)
         h = apply_norm(x, fnorm, self.cfg.norm_kind, self.cfg.norm_eps)
         return T.chunked_softmax_xent(h, hw, labels_cur, chunk=self.xent_chunk)
 
@@ -346,9 +361,9 @@ class RingMachine:
 
     # ---- gradient deposits (a slot leaves the ring at logical worker N-1) ---
     def deposit_plain(self, grad_shards, row, lid: int) -> None:
-        """Exact fp32 deposit: the fully ring-reduced row of layer ``lid``
-        crosses from the tail worker to its owner and sums into the owner's
-        accumulator row."""
+        """Exact fp32 deposit: the fully ring-reduced row of layer ``lid`` (a
+        layer's or, frozen-base, its adapters') crosses from the tail worker
+        to its owner and sums into the owner's accumulator row."""
         owner, idx = self.owner(lid)
         self.transport.deposit(grad_shards, owner, idx, tree_map(lambda a: a.float(), row))
 

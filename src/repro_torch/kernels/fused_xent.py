@@ -117,30 +117,34 @@ def fused_xent(x, w, labels, *, ignore_index=-100):
 fused_xent.launches = 0
 
 
-def xent_backward(x, w, labels, lse, g, ignore_index=-100, block_v=BWD_BLOCK_V):
+def xent_backward(x, w, labels, lse, g, ignore_index=-100, block_v=BWD_BLOCK_V, *,
+                  want_dw=True):
     """Gradients of sum(g * loss) with respect to x (T,D) and w (D,V), from
     the forward's log-sum-exp: per vocabulary block, G_b = (softmax - onehot)
     g with ignored tokens masked, dx += G_b W_bᵀ and dW_b = xᵀ G_b. fp32
     products, as the reference's ``_bwd``; the gradients come back in the
-    dtypes of x and w, dw as a (D,V) view of a dense (V,D) tensor."""
+    dtypes of x and w, dw as a (D,V) view of a dense (V,D) tensor. With
+    ``want_dw=False`` (a frozen head) dw is None: neither its products nor
+    its (V,D) tensor are made, and dx is the same, bit for bit."""
     t, d = x.shape
     v = w.shape[1]
     xf = x.float()
     gm = torch.where(labels != ignore_index, g.float(), torch.zeros((), device=g.device))
     dx = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    dw = torch.empty((v, d), dtype=w.dtype, device=w.device)
+    dw = torch.empty((v, d), dtype=w.dtype, device=w.device) if want_dw else None
     for v0 in range(0, v, block_v):
         wb = w[:, v0:v0 + block_v].float()                       # (D, bv)
         gb = ref.xent_block_grad(xf @ wb, lse, labels, v0, gm)   # (T, bv)
         dx += gb @ wb.T
-        dw[v0:v0 + block_v] = (gb.T @ xf).to(w.dtype)
-    return dx.to(x.dtype), dw.T
+        if want_dw:
+            dw[v0:v0 + block_v] = (gb.T @ xf).to(w.dtype)
+    return dx.to(x.dtype), None if dw is None else dw.T
 
 
 class FusedXent(torch.autograd.Function):
     """Differentiable per-token loss: ``forward_fn`` (the kernel on the card,
     the plain version on the CPU) gives loss and log-sum-exp; the backward is
-    ``xent_backward``."""
+    ``xent_backward``, which skips dw where the head needs no gradient."""
 
     @staticmethod
     def forward(ctx, x, w, labels, ignore_index, forward_fn):
@@ -152,5 +156,6 @@ class FusedXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, labels, lse = ctx.saved_tensors
-        dx, dw = xent_backward(x, w, labels, lse, g, ctx.ignore_index)
+        dx, dw = xent_backward(x, w, labels, lse, g, ctx.ignore_index,
+                               want_dw=ctx.needs_input_grad[1])
         return dx, dw, None, None, None

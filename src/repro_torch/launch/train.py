@@ -5,6 +5,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --strategy roundpipe --mesh 1x4 --batch 8 --seq 1024 --microbatches 8 \\
       --pool-dtype int8 --grad-compress int8 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --strategy roundpipe --mesh 1x4 --batch 8 --seq 1024 --lora-rank 8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
       --strategy roundpipe --mesh 1x4 --steps 2 --device cpu
 
@@ -13,10 +15,11 @@ The flags are those of ``repro.launch.train`` (``docs/cli.md``) and
 with the chunked standby prefetch; ``--microbatches M`` runs R = M/N rounds
 per step from round-major batches; ``--pool-dtype`` streams the pool as int8
 or int4 codes; ``--grad-compress int8`` makes the deposits error-feedback
-int8. What this slice does not run yet is refused by name: a data axis,
-``gspmd``, ``--async-opt``, ``--elastic``, ``--async-ckpt``, ``--lora-rank``,
-``--schedule searched``, checkpoints (``--ckpt-dir``, ``--ckpt-every``) and
-training of the rwkv6 and hybrid families (their scan kernels are forward
+int8; ``--lora-rank r`` fine-tunes rank-r adapters over a frozen base
+(``--lora-alpha``, ``--lora-targets``). What the port does not run yet is
+refused by name: a data axis, ``gspmd``, ``--async-opt``, ``--elastic``,
+``--async-ckpt``, ``--schedule searched``, checkpoints (``--ckpt-dir``,
+``--ckpt-every``) and training of the rwkv6 and hybrid families (their scan kernels are forward
 only; ``launch.serve`` serves both). Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -44,9 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="micro-batches per step M = R*N: R > 1 stitches R rounds back to "
                          "back per optimizer step, accumulating gradients across rounds; "
                          "0 -> one round (M = N)")
-    ap.add_argument("--lora-rank", type=int, default=0, help="not ported yet")
-    ap.add_argument("--lora-alpha", type=float, default=16.0, help="not ported yet")
-    ap.add_argument("--lora-targets", default="attn,mlp", help="not ported yet")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help=">0 enables frozen-base LoRA fine-tuning at this adapter rank")
+    ap.add_argument("--lora-alpha", type=float, default=16.0)
+    ap.add_argument("--lora-targets", default="attn,mlp",
+                    help="comma-separated module paths the adapters decorate")
     ap.add_argument("--pool-dtype", default="none", choices=["none", "int8", "int4"],
                     help="stream the resident pool quantized (blockwise-absmax codes + fp32 "
                          "scales, dequantized by the kernel at promote time); the master "
@@ -82,7 +87,6 @@ def _refusals(args, n_data: int) -> list[str]:
         "--async-opt": args.async_opt,
         "--elastic": args.elastic,
         "--async-ckpt": args.async_ckpt,
-        "--lora-rank": args.lora_rank > 0,
         "--schedule searched": args.schedule != "hand",
         "--ckpt-dir (checkpoints)": args.ckpt_dir is not None,
         "--ckpt-every (checkpoints)": args.ckpt_every is not None,
@@ -117,13 +121,20 @@ def run_training(args) -> dict:
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.launch.steps import StepConfig
     from repro_torch.models.config import get_config
+    from repro_torch.models.lora import LoraConfig, adapter_params_per_layer
     from repro_torch.optim import OptConfig
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    lora_cfg = None
+    if args.lora_rank > 0:
+        lora_cfg = LoraConfig(rank=args.lora_rank, alpha=args.lora_alpha,
+                              target_modules=tuple(t.strip() for t in args.lora_targets.split(",")
+                                                   if t.strip()))
     partition = uniform_partition(cfg.n_layers) if args.partition == "uniform" else None
-    plan = plan_from_config(cfg, n_model, partition=partition, pool_dtype=args.pool_dtype)
+    plan = plan_from_config(cfg, n_model, partition=partition, lora=lora_cfg,
+                            pool_dtype=args.pool_dtype)
     microbatches = args.microbatches or None
     m_sim = microbatches or n_model
     r_sim = plan.rounds_for(m_sim)
@@ -131,8 +142,17 @@ def run_training(args) -> dict:
     print(plan.describe())
     print(f"simulated bubble ratio ({r_sim} round{'s' if r_sim != 1 else ''}, M={m_sim}): "
           f"{sim.bubble_ratio:.4f}")
+    if lora_cfg is not None:
+        full = plan_from_config(cfg, n_model, partition=plan.partition)
+        up = sum(plan.stage_bytes) * r_sim
+        down = sum(plan.stage_download_bytes) * r_sim
+        full_down = sum(full.stage_download_bytes) * r_sim
+        n_train = adapter_params_per_layer(cfg, lora_cfg) * cfg.n_layers
+        print(f"LoRA r={lora_cfg.rank}: {n_train} trainable parameters; upload "
+              f"{up / 2**20:.1f} MiB/step, grad download {down / 2**20:.3f} MiB/step (full "
+              f"fine-tune would download {full_down / 2**20:.1f} MiB)")
     if args.pool_dtype != "none":
-        dense = plan_from_config(cfg, n_model, partition=plan.partition)
+        dense = plan_from_config(cfg, n_model, partition=plan.partition, lora=lora_cfg)
         q_up = sum(plan.stage_bytes) * r_sim
         d_up = sum(dense.stage_bytes) * r_sim
         print(f"quantized pool ({args.pool_dtype}): upload {q_up / 2**20:.1f} MiB/step "
@@ -140,7 +160,8 @@ def run_training(args) -> dict:
     step_cfg = StepConfig(strategy="roundpipe", grad_accum=1, async_optimizer=False,
                           sequence_parallel=n_model > 1, kv_chunk=min(1024, args.seq),
                           xent_chunk=min(256, args.seq), partition=plan,
-                          n_microbatches=microbatches, pool_dtype=args.pool_dtype,
+                          lora=lora_cfg, n_microbatches=microbatches,
+                          pool_dtype=args.pool_dtype,
                           grad_compress=args.grad_compress, opt=OptConfig(lr=args.lr))
     # round-major pipeline: multi-round steps take (R, B/R, S) batches
     # straight from the dataset, with no reshape in the step

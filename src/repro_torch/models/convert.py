@@ -2,7 +2,8 @@
 trees and the port's.
 
 The reference stacks its layers along a leading axis (one pytree whose
-leaves are (L, ...)); the port keeps a list of per-layer dicts. Both keep
+leaves are (L, ...)); the port keeps a list of per-layer dicts. The LoRA
+adapter pool (``"lora"``) is stacked and listed the same way. Both keep
 weights as (in, out), so no leaf is transposed. Trees cross between the two
 as nested dicts of numpy arrays.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_POOLED = ("layers", "lora")     # stacked on the reference's side, lists on the port's
 
 
 def _leaf(a, dtype, device):
@@ -27,28 +29,29 @@ def _map(fn, node):
 
 
 def params_from_jax(tree, *, dtype=None, device="cuda"):
-    """The reference's parameters (nested dicts of numpy arrays, layers
-    stacked) -> the port's (layers as a list). Each leaf keeps its dtype
-    unless ``dtype`` is given."""
-    out = {k: _map(lambda a: _leaf(a, dtype, device), v)
-           for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
-    n_layers = len(next(iter(_leaves(stacked))))
-    out["layers"] = [_map(lambda a, i=i: _leaf(np.asarray(a)[i], dtype, device), stacked)
-                     for i in range(n_layers)]
+    """The reference's parameters (nested dicts of numpy arrays, the layer
+    and adapter pools stacked) -> the port's (each pool a list of per-layer
+    dicts). Each leaf keeps its dtype unless ``dtype`` is given. A tree
+    without a layer pool (an adapter-only optimizer tree) converts too."""
+    out = {}
+    for k, v in tree.items():
+        if k not in _POOLED:
+            out[k] = _map(lambda a: _leaf(a, dtype, device), v)
+            continue
+        n_layers = len(next(iter(_leaves(v))))
+        out[k] = [_map(lambda a, i=i: _leaf(np.asarray(a)[i], dtype, device), v)
+                  for i in range(n_layers)]
     return out
 
 
 def params_to_numpy(params):
     """The port's parameters -> the reference's layout as float32 numpy
-    arrays (bf16 values are exact in float32), layers stacked on axis 0."""
+    arrays (bf16 values are exact in float32), each pool stacked on axis 0."""
     def f32(t):
         return t.detach().to(device="cpu", dtype=torch.float32).numpy()
 
-    out = {k: _map(f32, v) for k, v in params.items() if k != "layers"}
-    per_layer = [_map(f32, p) for p in params["layers"]]
-    out["layers"] = _stack(per_layer)
-    return out
+    return {k: _stack([_map(f32, p) for p in v]) if k in _POOLED else _map(f32, v)
+            for k, v in params.items()}
 
 
 _STATE_TREES = ("master", "m", "v")
@@ -60,7 +63,9 @@ def state_from_jax(state, *, device="cuda"):
     ``pool_rows``, as nested dicts of numpy arrays) -> the port's, each leaf
     in its own dtype and the padding rows kept as zero layers. The
     error-feedback residual ``opt["grad_residual"]`` (stacked like the pool)
-    becomes a list of fp32 layer dicts. AdamW state only: the reference's
+    becomes a list of fp32 layer dicts. A LoRA state (``params["lora"]``)
+    converts with optimizer trees that hold ``{"lora"}`` only and an
+    adapter-shaped residual. AdamW state only: the reference's
     Adafactor factors its stacked (L, d) leaves across layers, which
     per-layer leaves cannot hold."""
     opt = state["opt"]

@@ -207,8 +207,6 @@ def test_unported_parts_of_the_plan_layer_raise():
     p = plan.plan_from_config(cfg, N)
     with pytest.raises(NotImplementedError, match="search_schedule"):
         simulator.search_schedule(p)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        plan.default_layer_costs(cfg, lora=object())
 
 
 def test_port_trains_with_jax_and_the_reference_blocked():

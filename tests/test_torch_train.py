@@ -353,12 +353,14 @@ def test_ring_matches_single_program(kind, n_layers):
 def test_ring_refuses_what_is_not_ported():
     _, cfg = configs(7)
     p = plan.plan_from_config(cfg, N)
-    for kw, item in [({"lora": object()}, "LoRA"), ({"g0": 1}, "supervisor")]:
+    for kw, item in [({"g0": 1}, "supervisor")]:
         with pytest.raises(NotImplementedError, match=item):
             dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw)
-    # prefetch, rounds, the quantized pool and compressed deposits are ported
-    for kw in [{"pool_dtype": "int8"}, {"pool_dtype": "int4"}, {"grad_compress": "int8"},
-               {"n_microbatches": 8}, {"prefetch_program": p.prefetch_program()}]:
+    # prefetch, rounds, the quantized pool, compressed deposits and LoRA are ported
+    from repro_torch.models.lora import LoraConfig
+    for kw in [{"lora": LoraConfig(rank=4)}, {"pool_dtype": "int8"}, {"pool_dtype": "int4"},
+               {"grad_compress": "int8"}, {"n_microbatches": 8},
+               {"prefetch_program": p.prefetch_program()}]:
         assert callable(dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw))
     for kw in [{"pool_dtype": "int2"}, {"grad_compress": "int4"}]:
         with pytest.raises(ValueError, match="unknown"):
@@ -450,7 +452,7 @@ def test_train_cli_on_cpu_and_refusals():
     assert lines[1].startswith("simulated bubble ratio (2 rounds, M=8): ")
     assert lines[2].startswith("step     0 loss ") and lines[3].startswith("done: 1 steps")
     for extra, name in [(["--async-opt"], "--async-opt"), (["--ckpt-dir", "x"], "--ckpt-dir"),
-                        (["--mesh", "2x4"], "data axis"), (["--lora-rank", "4"], "--lora-rank")]:
+                        (["--mesh", "2x4"], "data axis")]:
         r = _run_cli(*base, *extra, "--device", "cpu")
         assert r.returncode != 0 and name in r.stderr, (extra, r.stderr)
 
