@@ -110,7 +110,29 @@ Phases, in order; any failure exits non-zero at once:
      the whole adapter gradient within 2e-2 on the relative norm, and each
      leaf no farther from the fp32 single program than 1.25x the bf16 single
      program is);
- 10. print the card's line, the ``kernels`` JSON line, then the result line.
+ 10. the chained staleness-1 optimizer, the host-resident optimizer and
+     checkpoint restarts, at full width: the launcher with ``--async-opt
+     --async-steps 4 --steps 8`` at 28 layers, dense and ``--lora-rank 8``,
+     and ``--async-steps 2 --steps 4 --microbatches 8 --pool-dtype int8
+     --grad-compress int8``, each with the counts set to 0 just before and
+     read just after and checked against the plan, the quantize passes
+     counted, falling finite losses, step ms, peak memory and a traced
+     chained call (device time per slot kind, in the ``D_k`` updates and
+     outside any range; its I*R*S + N - 1 ticks), beside the synchronous
+     step's trace of phase 7; the chained ring against the serial
+     ``reference_staleness1`` oracle on the single program (kernels) at 2
+     layers, fp32 (loss rtol 1e-4, worst relative weight error 5e-3,
+     separation from staleness-0) and bf16 (2e-2 on the relative norm, and
+     no farther from fp32 than 1.25x the bf16 oracle); ``HostAsyncRoundPipe``
+     with the optimizer on the CPU (peak device memory, pinned host bytes,
+     step, device and optimizer seconds, the optimizer's hidden share),
+     within 5e-3 of the serial oracle and bit-identical to it at 2 layers on
+     32-token sequences of tokens that occur once; and, at 2 layers on such
+     sequences, runs resumed from ``--ckpt-dir`` bit-identical to
+     uninterrupted ones (synchronous and chained), an off-boundary
+     checkpoint refused under ``--async-opt``, and the checkpoint's bytes and
+     save and load seconds;
+ 11. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -2171,6 +2193,530 @@ def _lora_ring_vs_single(dtype_label):
 
 
 # The device kernels each traced wrapper launches, by name in a trace.
+# ---------------------------------------------------------------------------
+# Phase 10: the chained staleness-1 optimizer, the host-resident optimizer
+# and checkpoint restarts
+# ---------------------------------------------------------------------------
+
+ASYNC_K, ASYNC_STEPS = 4, 8                  # --async-steps and --steps of the chained runs
+ASYNC_LR = "1e-4"
+HOST_LAYERS = 8                              # depth of the host-resident optimizer run
+HOST_STEPS = 3
+HOST_EVENT_S = 30.0                          # the protocol's wait for one event (consistency.py)
+
+
+@contextlib.contextmanager
+def _count_quantize():
+    """Counts ``RingMachine.quantize_pool`` passes while the block runs."""
+    from repro_torch.core.ring import RingMachine
+    kept = RingMachine.quantize_pool
+    box = {"passes": 0}
+
+    def counted(self, shards):
+        box["passes"] += 1
+        return kept(self, shards)
+
+    RingMachine.quantize_pool = counted
+    try:
+        yield box
+    finally:
+        RingMachine.quantize_pool = kept
+
+
+def _stacked_batches(cfg, k, seed, seq=None):
+    """``k`` consecutive launcher batches stacked on a leading step axis, on
+    the card."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq or TRAIN_SEQ, TRAIN_BATCH,
+                                         seed=seed))
+    bs = [data.batch(i) for i in range(k)]
+    return {key: torch.stack([torch.from_numpy(b[key]) for b in bs]).to(DEVICE) for key in bs[0]}
+
+
+def phase_async_train(k=ASYNC_K, steps=ASYNC_STEPS, pool_dtype="none", grad_compress="none",
+                      microbatches=None, lora=False):
+    """The launcher's chained run (``--async-opt --async-steps k``) at full
+    width and depth, the counts set to 0 just before and read just after and
+    checked against the plan (per step, as the synchronous runs: the chain
+    changes when work runs, not how much); quantize passes: one per version
+    a chain injects (its steps 0 and 1 share v_0; a frozen base is quantized
+    once a chain), never more than one a step; finite losses; no restart.
+    The run's learning rate is 1e-4: Adam's first steps at 3e-4 overshoot at
+    this width without warmup (``phase_repeated_batch``), and on fresh
+    batches the loss rises for the first steps even at 1e-4, so the falling
+    loss is checked as ``phase_repeated_batch`` checks it: two more chained
+    calls of 2 steps on the final state, on one repeated batch at learning
+    rate 1e-5, the second traced (device time per slot kind, in the ``D_k``
+    updates and outside any range; its I*R*S + N - 1 ticks; 2 steps, not K,
+    as the profiler's processing of a trace grows with its ~36,000-112,000
+    device events a step); the last step's loss must be below the first's."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_async_train_step
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.config import get_config
+    from repro_torch.optim import OptConfig
+
+    counters = _quant_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    argv = ["--arch", ARCH, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+            "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--async-opt", "--async-steps", str(k), "--steps", str(steps), "--lr", ASYNC_LR,
+            "--pool-dtype", pool_dtype, "--grad-compress", grad_compress, "--log-every", "1",
+            "--device", DEVICE]
+    if microbatches:
+        argv += ["--microbatches", str(microbatches)]
+    if lora:
+        argv += ["--lora-rank", str(LORA_RANK)]
+    with _count_quantize() as quantized:
+        out = train.main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    plan = out["plan"]
+    rounds = plan.rounds_for(microbatches or TRAIN_WORKERS)
+    quant = pool_dtype != "none"
+    want = _ring_launches(plan, steps * rounds, quant)
+    calls = steps // k
+    want_q = 0 if not quant else calls * (1 if lora else max(1, k - 1))
+    label = (f"K={k}, R={rounds}, pool {pool_dtype}, deposits {grad_compress}"
+             + (f", LoRA r={LORA_RANK}" if lora else ""))
+    print(f"async train ({label}) launches: {launches} (the plan predicts {want}), quantize "
+          f"passes {quantized['passes']} (want {want_q}), peak memory {peak / 1e9:.2f} GB, "
+          f"step ms {[x * 1e3 for x in out['step_s']]}, losses {out['losses']}")
+    check(launches == want, f"async launches ({label}) {launches} != the plan's {want}")
+    check(quantized["passes"] == want_q,
+          f"async quantize passes ({label}) {quantized['passes']} != {want_q}")
+    check(out["steps"] == steps and len(out["losses"]) == steps,
+          f"the chained run ({label}) ran {out['steps']} steps")
+    check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
+    check(out["loop"].restarts == 0, f"the chained run ({label}) restarted")
+
+    cfg = get_config(ARCH)
+    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                          xent_chunk=min(256, TRAIN_SEQ), partition=plan,
+                          lora=_lora_cfg() if lora else None, n_microbatches=microbatches,
+                          pool_dtype=pool_dtype, grad_compress=grad_compress,
+                          opt=OptConfig(lr=1e-5))
+    kt = 2
+    multi, _ = build_roundpipe_async_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH,
+                                                TRAIN_SEQ, steps_per_call=kt, plan=plan)
+    one_batch = _stacked_batches(cfg, 1, seed=9)
+    batches = {key: v.expand(kt, *v.shape[1:]) for key, v in one_batch.items()}
+    box = {"s": out.pop("state")}
+    repeated = []
+
+    def one():
+        box["s"], m = multi(box["s"], batches)
+        repeated.extend(m["loss"].tolist())
+
+    one()
+    traced = _trace(one, 1)
+    print(f"async train ({label}) on a repeated batch at lr 1e-5: losses {repeated}")
+    check(all(math.isfinite(x) for x in repeated), f"non-finite losses {repeated}")
+    check(repeated[-1] < repeated[0],
+          f"the chained loss ({label}) does not fall on a repeated batch: {repeated}")
+    ticks = len(plan.tick_program(rounds, kt).records)
+    check(ticks == kt * rounds * plan.n_slots + TRAIN_WORKERS - 1,
+          f"the chained program has {ticks} ticks")
+    del box, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "quantize_passes": quantized["passes"],
+            "step_ms": [x * 1e3 for x in out["step_s"]], "losses": out["losses"],
+            "repeated_batch_losses": repeated, "peak_memory_gb": peak / 1e9,
+            "chained_steps": k, "rounds": rounds, "traced_call_steps": kt,
+            "traced_call_ticks": ticks, "traced_chained_call": traced}
+
+
+def _max_rel(got, want) -> float:
+    """max over leaves of max |got - want| / (max |want| + 1e-6)."""
+    return max(_leaf_max_rel(got, want).values())
+
+
+def _leaf_max_rel(got, want) -> dict:
+    """leaf name -> max |got - want| / (max |want| + 1e-6)."""
+    from repro_torch.optim.adam import tree_leaves
+    return {n: ((g.float() - w.float()).abs().max() / (w.float().abs().max() + 1e-6)).item()
+            for g, w, n in zip(tree_leaves(got), tree_leaves(want), _leaf_names(want))}
+
+
+def _single_grads(cfg):
+    """``grad_of(params, batch) -> (loss, grads)``: the port's single program
+    (``T.loss_fn``) differentiated by autograd, on the card through the
+    kernels."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import tree_leaves, tree_map
+
+    def grad_of(params, batch):
+        p = tree_map(lambda a: a.detach().requires_grad_(), params)
+        loss = T.loss_fn(p, batch, cfg, remat=False)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        it = iter(grads)
+        return loss.detach(), tree_map(lambda _: next(it), p)
+
+    return grad_of
+
+
+def _staleness_oracles(params, grad_of, batches, steps, ocfg):
+    """The serial staleness-1 oracle (``reference_staleness1``: final weights,
+    losses) and the staleness-0 trajectory's final weights, with the port's
+    ``apply_updates`` on the card."""
+    from repro_torch.core.consistency import reference_staleness1
+    from repro_torch.optim.adam import apply_updates, init_opt_state
+
+    losses = []
+    cell = {"opt": init_opt_state(params, ocfg)}
+
+    def device_fn(weights, t):
+        loss, grads = grad_of(weights[0], {k: v[t] for k, v in batches.items()})
+        losses.append(float(loss))
+        return [grads]
+
+    def optimizer_fn(opt_w, staged, t):
+        new, cell["opt"], _ = apply_updates(cell["opt"], staged[0], ocfg, param_like=params)
+        return [new]
+
+    s1 = reference_staleness1(1, device_fn, optimizer_fn, [params], steps)[0]
+    cur, opt = params, init_opt_state(params, ocfg)
+    for t in range(steps):
+        _, grads = grad_of(cur, {k: v[t] for k, v in batches.items()})
+        cur, opt, _ = apply_updates(opt, grads, ocfg, param_like=params)
+    return s1, losses, cur
+
+
+ASYNC_ORACLE_LR = 1e-3
+
+
+def phase_async_vs_staleness1():
+    """The chained ring (kernels) against the serial staleness-1 oracle
+    ``reference_staleness1`` driven by the port's single program on the card
+    (kernels too) and ``apply_updates``, at full width, 2 layers, one layer a
+    slot, K = 3 steps, R = 1, prefetch on, 8 sequences of 256 tokens,
+    learning rate 1e-3. fp32, the bars of ``tests/roundpipe_subprocess.py``
+    ``run_async``: losses rtol 1e-4, worst relative weight error (max abs)
+    below 5e-3, the oracle's separation from staleness-0 more than 10x that
+    error and the ring's distance from staleness-0 more than 5x it. bf16,
+    the bar of the LoRA check (``phase_lora_ring_vs_single``) on the final
+    weights: losses and the whole weight tree within 2e-2 on the relative
+    norm, and each leaf no farther from the fp32 oracle (run from the same
+    bf16 weights in fp32) than 1.25x the bf16 oracle is."""
+    out = {d: _async_vs_staleness1(d) for d in ("float32", "bfloat16")}
+    f32, b16 = out["float32"], out["bfloat16"]
+    check(f32["loss_rtol"] <= 1e-4, "chained losses disagree with the staleness-1 oracle (fp32)")
+    check(f32["err_s1"] < 5e-3, "chained weights disagree with the staleness-1 oracle (fp32)")
+    check(f32["separation"] > 10 * max(f32["err_s1"], 1e-9),
+          "the staleness-1 oracle is not separated from staleness-0 (fp32)")
+    check(f32["err_s0"] > 5 * f32["err_s1"], "the chained ring is staleness-0 (fp32)")
+    check(b16["loss_rtol"] <= BWD_REL_BF16,
+          "chained losses disagree with the staleness-1 oracle (bf16)")
+    check(b16["tree_norm_rel"] <= BWD_REL_BF16,
+          "chained weights disagree with the staleness-1 oracle (bf16)")
+    check(b16["worst_truth_ratio"] <= LORA_BF16_TRUTH_RATIO,
+          "chained weights (bf16) are farther from the fp32 oracle than the bf16 oracle is")
+    return out
+
+
+def _async_vs_staleness1(dtype_label):
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_async_train_step, pad_pool
+    from repro_torch.core.plan import plan_from_config, uniform_partition
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adam import init_opt_state, tree_leaves, tree_map
+
+    dtype = getattr(torch, dtype_label)
+    steps, seq = 3, 256
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(2))
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    params = T.init_params(cfg, gen, dtype=dtype, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (steps, TRAIN_BATCH, seq), generator=gen,
+                           device=DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (steps, TRAIN_BATCH, seq), generator=gen,
+                           device=DEVICE)
+    labels[:, :, ::5] = -100
+    batches = {"tokens": tokens, "labels": labels}
+    ocfg = OptConfig(lr=ASYNC_ORACLE_LR)
+    grad_of = _single_grads(cfg)
+    s1, losses, s0 = _staleness_oracles(params, grad_of, batches, steps, ocfg)
+    truth = None
+    if dtype == torch.bfloat16:
+        truth = _staleness_oracles(_cast(params, torch.float32), grad_of, batches, steps,
+                                   ocfg)[0]
+    state = {"params": pad_pool(tree_map(torch.clone, params), cfg, TRAIN_WORKERS)}
+    state["opt"] = init_opt_state(state["params"], ocfg)
+    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, seq), xent_chunk=256,
+                          partition=plan, opt=ocfg)
+    multi, _ = build_roundpipe_async_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, seq,
+                                                steps_per_call=steps, plan=plan)
+    counters = _train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    state, metrics = multi(state, batches)
+    check(all(fn.launches > before[k] for k, fn in counters.items()),
+          f"the chained ring did not run through every training kernel ({dtype_label})")
+    got = dict(state["params"], layers=state["params"]["layers"][:cfg.n_layers])
+    ring_losses = metrics["loss"].tolist()
+    flat = lambda tree: torch.cat([x.float().reshape(-1) for x in tree_leaves(tree)])  # noqa: E731
+    out = {"loss_rtol": max(abs(a - b) / abs(b) for a, b in zip(ring_losses, losses)),
+           "err_s1": _max_rel(got, s1), "err_s0": _max_rel(got, s0),
+           "separation": _max_rel(s0, s1), "tree_norm_rel": _rel(flat(got), flat(s1)),
+           "worst_leaves": dict(sorted(_leaf_max_rel(got, s1).items(),
+                                       key=lambda kv: -kv[1])[:3]),
+           "losses": ring_losses, "oracle_losses": losses}
+    if truth is not None:
+        names = _leaf_names(got)
+        ratios = sorted(((_rel(g, t) / max(_rel(w, t), 1e-30), n, _rel(g, t), _rel(w, t))
+                         for g, w, t, n in zip(tree_leaves(got), tree_leaves(s1),
+                                               tree_leaves(truth), names)), reverse=True)
+        out["worst_truth_ratio"] = ratios[0][0]
+        out["worst_truth_leaf"] = {"leaf": ratios[0][1], "ring_vs_fp32": ratios[0][2],
+                                   "oracle_bf16_vs_fp32": ratios[0][3]}
+    print(f"chained ring vs staleness-1 oracle, {dtype_label}, full width, 2 layers, K={steps}, "
+          f"plan {plan.describe()}: " + json.dumps(out))
+    del params, state, s1, s0, truth, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _unique_token_data(seq):
+    """A dataset class for the launcher whose batches draw every token once
+    (a permutation of the vocabulary; the embedding scatter sums by atomics)
+    at ``seq`` tokens (one kv tile of the flash backward, whose dQ sums by
+    atomics), so two runs are bit-identical; labels from the same stream,
+    the first 3 of each row ignored."""
+    import numpy as np
+
+    class UniqueTokens:
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        def batch(self, step):
+            rng = np.random.default_rng(np.random.SeedSequence([self.cfg.seed, step]))
+            rows = self.cfg.global_batch
+            tokens = rng.permutation(self.cfg.vocab_size)[:rows * seq].reshape(rows, seq)
+            labels = rng.integers(0, self.cfg.vocab_size, (rows, seq))
+            labels[:, :3] = -100
+            return {"tokens": tokens.astype(np.int32), "labels": labels.astype(np.int32)}
+
+    return UniqueTokens
+
+
+@contextlib.contextmanager
+def _launcher_data(cls):
+    from repro_torch import data
+    kept = data.SyntheticLMDataset
+    data.SyntheticLMDataset = cls
+    try:
+        yield
+    finally:
+        data.SyntheticLMDataset = kept
+
+
+def _two_layer_arch():
+    """qwen3-1.7b at full width and 2 layers, registered for the launcher."""
+    from repro_torch.models.config import REGISTRY, get_config, register
+    name = f"{ARCH}-2l"
+    if name not in REGISTRY:
+        register(dataclasses.replace(get_config(ARCH), name=name, n_layers=2))
+    return name
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    from repro_torch.optim.adam import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_resume():
+    """At full width, 2 layers, 32-token sequences of tokens that occur
+    once (so runs are bit-identical on the card): through the launcher, 4
+    uninterrupted steps equal 1 step, a resume, 1 step, a resume, 2 steps
+    (synchronous, ``--ckpt-dir``), and 4 chained steps (K = 2) equal one
+    chain, a resume, one chain; a synchronous checkpoint off a chain
+    boundary is refused under ``--async-opt``. The checkpoint's bytes and its
+    save and load seconds, timed alone."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
+    from repro_torch.launch import train
+
+    arch, seq = _two_layer_arch(), 32
+
+    def run(ckpt, steps, *extra):
+        # one layer a slot: the auto plan of 2 layers is one slot, too few
+        # ticks a step for chaining (R*S >= N - 1)
+        argv = ["--arch", arch, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+                "--partition", "uniform", "--batch", str(TRAIN_BATCH), "--seq", str(seq),
+                "--steps", str(steps), "--log-every", "100", "--device", DEVICE, *extra]
+        if ckpt is not None:
+            argv += ["--ckpt-dir", ckpt]
+        return train.main(argv)
+
+    report = {}
+    root = tempfile.mkdtemp()
+    try:
+        with _launcher_data(_unique_token_data(seq)):
+            ref = run(None, 4)
+            again = run(None, 4)
+            check(_same_state(ref["state"], again["state"]),
+                  "two uninterrupted runs differ: the resume check is not deterministic")
+            del again
+            d = f"{root}/sync"
+            run(d, 1, "--ckpt-every", "1")
+            refused = None
+            try:
+                run(d, 4, "--async-opt", "--async-steps", "2")
+            except SystemExit as e:
+                refused = str(e)
+            check(refused is not None and "not a multiple of --async-steps 2" in refused,
+                  f"an off-boundary checkpoint was not refused under --async-opt: {refused}")
+            mid = run(d, 2, "--ckpt-every", "1")
+            check(mid["resumed_from"] == 0, f"resumed from {mid['resumed_from']}, not step 0")
+            del mid
+            last = run(d, 4, "--ckpt-every", "100")
+            check(last["resumed_from"] == 1 and len(last["losses"]) == 2,
+                  f"resumed from {last['resumed_from']} with {len(last['losses'])} steps")
+            check(last["losses"] == ref["losses"][2:],
+                  f"resumed losses {last['losses']} != {ref['losses'][2:]}")
+            check(_same_state(last["state"], ref["state"]),
+                  "a resumed synchronous run is not bit-identical to the uninterrupted one")
+            del last
+            shutil.rmtree(d)
+            k2 = ("--async-opt", "--async-steps", "2")
+            aref = run(None, 4, *k2)
+            d = f"{root}/async"
+            run(d, 2, *k2, "--ckpt-every", "2")
+            check(latest_step(d) == 1, f"the chain's checkpoint is at step {latest_step(d)}")
+            alast = run(d, 4, *k2, "--ckpt-every", "100")
+            check(alast["resumed_from"] == 1 and alast["losses"] == aref["losses"][2:],
+                  f"resumed chained losses {alast['losses']} != {aref['losses'][2:]}")
+            check(_same_state(alast["state"], aref["state"]),
+                  "a resumed chained run is not bit-identical to the uninterrupted one")
+            shutil.rmtree(d)
+        state = ref["state"]
+        del ref, aref, alast
+        d = f"{root}/timed"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 0, state, keep=1)
+        report["save_s"] = time.perf_counter() - t0
+        report["bytes"] = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        back, _ = load_checkpoint(d, 0, state)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        check(_same_state(back, state), "a checkpoint does not load back bit for bit")
+        del back, state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report["bytes_gb"] = report["bytes"] / 1e9
+    print("resume, full width, 2 layers, seq 32: sync 1+1+2 steps and async 2+2 (K=2) "
+          "bit-identical to uninterrupted runs; an off-boundary checkpoint refused under "
+          "--async-opt; checkpoint " + json.dumps(report))
+    return report
+
+
+def phase_host_async():
+    """``HostAsyncRoundPipe`` at full width: the ring's grads function on
+    the card, the fp32 master and moments in pinned host memory and the
+    optimizer on the CPU, ``HOST_LAYERS`` layers, 3 steps of 8 x 1024
+    tokens. 8 layers, not 28: the CPU optimizer takes over 30 s a step at
+    28 layers on the 8 host cores of one H100 machine, and the protocol's wait for one
+    event (``EventBook.wait``, kept as the reference has it) is 30 s; the
+    script prints the optimizer's seconds per parameter and what that makes
+    at 28 layers. Prints peak device memory, pinned host bytes, wall seconds a
+    step, the device thread's and the CPU optimizer's seconds a step and the
+    share of the optimizer hidden under device work, and holds the final
+    weights against the serial ``reference_staleness1`` with the same grads
+    function and the same host ``apply_updates``: within 5e-3 (max abs
+    relative) at 1024 tokens, and bit-identical at 2 layers with 32-token
+    sequences of tokens that occur once."""
+    out = {"full": _host_async(HOST_LAYERS, TRAIN_SEQ, unique=False),
+           "bit_identity_2_layers": _host_async(2, 32, unique=True)}
+    check(out["full"]["err_vs_serial"] < 5e-3,
+          "the host-resident async optimizer disagrees with the serial oracle")
+    check(out["bit_identity_2_layers"]["bit_identical"],
+          "the host-resident async optimizer is not bit-identical to the serial oracle")
+    return out
+
+
+def _host_async(layers, seq, *, unique):
+    import numpy as np
+    import torch
+    from repro_torch.core.consistency import reference_staleness1
+    from repro_torch.core.dispatch import build_roundpipe_grads_fn
+    from repro_torch.core.plan import plan_from_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adam import apply_updates, init_opt_state, tree_leaves, tree_map
+    from repro_torch.optim.async_opt import HostAsyncRoundPipe
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=layers)
+    plan = plan_from_config(cfg, TRAIN_WORKERS)
+    dcfg = DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=17)
+    data = (_unique_token_data(seq) if unique else SyntheticLMDataset)(dcfg)
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(DEVICE) for k, v in data.batch(t).items()}
+               for t in range(HOST_STEPS)]
+    grads_fn = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan)
+    ocfg = OptConfig(lr=float(ASYNC_LR), placement="host")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = tree_map(lambda a: a.to("cpu"), T.init_params(cfg, gen, device=DEVICE))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    host = HostAsyncRoundPipe(grads_fn, params, ocfg, batches, device=DEVICE)
+    final = host.train(HOST_STEPS, timeout=600.0)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    full = dataclasses.replace(cfg, n_layers=get_config(ARCH).n_layers)
+    n_full = n_params + (full.n_layers - layers) * sum(
+        x.numel() for x in tree_leaves(params["layers"][0]))
+    report = {"layers": layers, "seq": seq, "params": n_params,
+              "peak_device_memory_gb": peak / 1e9, "pinned_host_gb": host.pinned_bytes / 1e9,
+              "wall_s_per_step": host.wall_s / HOST_STEPS, "device_s": host.device_s,
+              "optimizer_s": host.optimizer_s, "hidden_share": host.hidden_share(),
+              "optimizer_s_per_param": sorted(host.optimizer_s)[1] / n_params,
+              "optimizer_s_projected_28_layers": sorted(host.optimizer_s)[1] / n_params * n_full,
+              "losses": host.losses}
+    check(all(math.isfinite(x) for x in host.losses), f"non-finite losses {host.losses}")
+    check(max(host.optimizer_s) < HOST_EVENT_S,
+          f"the CPU optimizer took {max(host.optimizer_s):.1f} s a step")
+    del host
+    # the serial oracle: the same grads function and the same host update
+    cell = {"opt": init_opt_state(params, ocfg)}
+
+    def device_fn(weights, t):
+        dev = tree_map(lambda a: a.to(DEVICE), weights[0])
+        grads = grads_fn(dev, batches[t])[0]
+        return [tree_map(lambda g: g.to("cpu"), grads)]
+
+    def optimizer_fn(opt_w, staged, t):
+        new, cell["opt"], _ = apply_updates(cell["opt"], staged[0], ocfg, param_like=params)
+        return [new]
+
+    want = reference_staleness1(1, device_fn, optimizer_fn, [params], HOST_STEPS)[0]
+    report["err_vs_serial"] = _max_rel(final, want)
+    report["bit_identical"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(final),
+                                                                     tree_leaves(want)))
+    print(f"host-resident async optimizer, full width, {layers} layers, seq {seq}: "
+          + json.dumps(report))
+    del cell, want, final, params, batches
+    torch.cuda.empty_cache()
+    return report
+
+
 TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
                                        "decode_combine_kernel"),
                   "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -2195,20 +2741,25 @@ def _trace(fn, calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name.removeprefix("roundpipe."))
-                    for e in device if e.name.startswith("roundpipe."))
-    events = [e for e in device if not e.name.startswith("roundpipe.")]
+    # the raw Kineto events: ``prof.events()`` builds the CPU call tree too,
+    # which takes ~36 s for a traced chained call of two full-width steps
+    # (365,000 events) where these take ~3
+    device = [(e.name(), e.start_ns(), e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ranges = sorted((t0_ns, t0_ns + d, name.removeprefix("roundpipe."))
+                    for name, t0_ns, d in device if name.startswith("roundpipe."))
+    events = [e for e in device if not e[0].startswith("roundpipe.")]
     if not events:
         return "not measured: the trace holds no CUDA events"
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    busy = sum(d for _, _, d in events) / 1e6
     by_kind, by_name = {}, {}
     starts = [r[0] for r in ranges]
-    for e in events:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        kind = ranges[i][2] if i >= 0 and e.time_range.start < ranges[i][1] else "outside"
+    for name, t0_ns, d in events:
+        us = d / 1e3
+        by_name[name] = by_name.get(name, 0.0) + us
+        i = bisect.bisect_right(starts, t0_ns) - 1
+        kind = ranges[i][2] if i >= 0 and t0_ns < ranges[i][1] else "outside"
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"wall_ms": wall * 1e3 / calls, "device_busy_ms": busy / calls,
@@ -2238,6 +2789,17 @@ def _row(name, source, replaces, launches, errs, ms, plain_ms, lib_ms, nbytes, f
             "library_ms": lib_ms, "main_shape_err": errs[f"{name}@main"]}
 
 
+def _timed_phase(name, fn, seconds: list):
+    """``fn`` that appends (its name, its seconds) to ``seconds``."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append((name, round(time.perf_counter() - t0, 1)))
+    return run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2813,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    seconds = []          # every phase's host seconds, printed before the card's line
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_"):
+            globals()[name] = _timed_phase(name, fn, seconds)
     smi = phase_device()
     phase_build()
     errs = phase_kernels()
@@ -2276,9 +2842,17 @@ def main() -> int:
     lora = {"lora_r8": phase_lora_train(),
             "lora_r8_int4_R2": phase_lora_train("int4", "int8", QUANT_MICRO)}
     lora_ring = phase_lora_ring_vs_single()
+    chained = {"dense_K4": phase_async_train(),
+               "lora_r8_K4": phase_async_train(lora=True),
+               "int8_ef_R2_K2": phase_async_train(k=2, steps=4, pool_dtype="int8",
+                                                  grad_compress="int8",
+                                                  microbatches=QUANT_MICRO)}
+    chained_vs_oracle = phase_async_vs_staleness1()
+    host_async = phase_host_async()
+    resume = phase_resume()
     for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
-    for q in [*quant.values(), *lora.values()]:
+    for q in [*quant.values(), *lora.values(), *chained.values()]:
         for name, n in q["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for row in rows:
@@ -2304,6 +2878,12 @@ def main() -> int:
         {**lora, "ring_vs_single": lora_ring,
          "dense_one_round": {"warm_step_ms_median": dense_warm[len(dense_warm) // 2] * 1e3,
                              "peak_memory_gb": peak / 1e9, "traced_step": traced}}))
+    print("async train timings " + json.dumps(
+        {**chained, "vs_staleness1": chained_vs_oracle, "host_resident": host_async,
+         "resume": resume,
+         "dense_sync_one_round": {"warm_step_ms_median": dense_warm[len(dense_warm) // 2] * 1e3,
+                                  "peak_memory_gb": peak / 1e9, "traced_step": traced}}))
+    print("phase seconds " + json.dumps(seconds))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

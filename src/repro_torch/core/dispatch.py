@@ -52,6 +52,19 @@ are exactly ``{"lora": ...}``. The quantized codec still quantizes the base
 pool once a step; the adapters stay in their own precision.
 
 Not ported yet, and refused by name: ``g0 != 0``.
+
+The chained staleness-1 program (``roundpipe_async_forward_backward``,
+``build_roundpipe_async_train_step``; paper §4.3, DESIGN.md §6) runs I
+optimizer steps through the same driver in ``I*R*S + N - 1`` ticks of one
+``plan.tick_program(R, I)``: step T's injections and its traced work read
+version ``v_{T-1}`` (``v_0`` for steps 0 and 1), and at step k's
+deposit-complete tick ``D_k`` the optimizer runs on step k's drained
+gradients and publishes ``v_{k+1}``. Each worker's step at each tick is a
+Python int here, so versions and per-step accumulators are kept by step and
+freed when their last reader retires, where the reference keeps 2-deep
+parity buffers indexed by a traced step: at most two versions live at once,
+and ``v_{k+1}`` is written into the buffers of ``v_{k-1}``, whose last
+reader (step k) retired at ``D_k``.
 """
 from __future__ import annotations
 
@@ -78,12 +91,30 @@ def _refuse(what: str, item: str):
 
 def _check_options(*, pool_dtype="none", grad_compress="none", g0=0):
     if g0 != 0:
-        _refuse(f"ring rotation g0={g0}", "supervisor")
+        _refuse(f"ring rotation g0={g0}", "item 11, the supervisor")
     if pool_dtype not in ("none", *POOL_DTYPE_BITS):
         raise ValueError(f"unknown pool_dtype {pool_dtype!r}; expected "
                          f"none|{'|'.join(POOL_DTYPE_BITS)}")
     if grad_compress not in ("none", "int8"):
         raise ValueError(f"unknown grad_compress {grad_compress!r}; expected none|int8")
+
+
+def _check_program(program, plan, rounds: int, iterations: int):
+    """Validate an externally supplied tick program against the plan before
+    a driver unrolls it: the shape fields must match and the injection order
+    must be exactly the plan's round-stitched tick_table. A rotated program
+    (``g0 != 0``) is refused by name."""
+    if (program.n_workers != plan.n_workers or program.n_slots != plan.n_slots
+            or program.rounds != rounds or program.iterations != iterations):
+        raise ValueError(
+            f"tick program shaped (N={program.n_workers}, S={program.n_slots}, "
+            f"R={program.rounds}, I={program.iterations}) does not match plan "
+            f"(N={plan.n_workers}, S={plan.n_slots}) at R={rounds}, I={iterations}")
+    if program.entries != plan.tick_table(rounds, iterations):
+        raise ValueError("tick program injection order does not match the plan's "
+                         "round-stitched tick_table")
+    _check_options(g0=program.g0)
+    return program
 
 
 def _leaf(tree):
@@ -100,19 +131,22 @@ def _unflatten(tree, flat):
 class Standby:
     """The double-buffered standby of the prefetch path.
 
-    ``upload`` fills the next standby through ``fill(zeros)`` and ``promote``
-    turns the newest one into an injection block through ``use(standby)``.
-    On a CUDA device the uploads run on a side stream, so slot j+1's chunks
-    stream while slot j computes, ordered by events both ways: a promote
-    waits for the upload it reads, and an upload into a buffer waits for the
-    promote that last read that buffer. ``zeros(k)`` makes the buffers of
-    parity k: with ``keep`` the two buffers are made once and refilled (the
-    quantized codes, dequantized into a fresh block at promote time);
-    without it every upload makes a fresh standby, which its promote hands to
-    the ring as the block itself (the dense codec). Buffers made on the side
-    stream and used on the main one are marked with ``record_stream``, so the
-    allocator does not reuse them before the main stream is done with them.
-    On the CPU everything runs in order on the calling thread."""
+    ``upload`` fills the next standby through ``fill(zeros, slot, step)`` and
+    ``promote`` turns the newest one into an injection block through
+    ``use(standby)``. On a CUDA device the uploads run on a side stream, so
+    slot j+1's chunks stream while slot j computes, ordered by events both
+    ways: a promote waits for the upload it reads, and an upload into a
+    buffer waits for the promote that last read that buffer; ``follow``
+    makes later uploads wait for what the main stream has queued so far (a
+    parameter version the optimizer just wrote). ``zeros(slot, step)`` makes
+    the buffers of parity k: with ``keep`` the two buffers are made once and
+    refilled (the quantized codes, dequantized into a fresh block at promote
+    time); without it every upload makes a fresh standby, which its promote
+    hands to the ring as the block itself (the dense codec). Buffers made on
+    the side stream and used on the main one are marked with
+    ``record_stream``, so the allocator does not reuse them before the main
+    stream is done with them. On the CPU everything runs in order on the
+    calling thread."""
 
     def __init__(self, device, zeros, fill, use, *, keep: bool):
         self.cuda = device.type == "cuda"
@@ -123,20 +157,25 @@ class Standby:
         self.uploaded = [None, None]
         self.consumed = [None, None]
         self.k = 1
-        if self.cuda:       # the pool (and its codes) as the main stream left them
+        self.follow()       # the pool (and its codes) as the main stream left them
+
+    def follow(self) -> None:
+        if self.cuda:
             self.side.wait_stream(self.main)
 
-    def upload(self, slot_idx: int) -> None:
+    def upload(self, slot_idx: int, step: int = 0) -> None:
         k = self.k = 1 - self.k
         if not self.cuda:
-            buf = self.bufs[k] if self.keep and self.bufs[k] is not None else self.zeros(slot_idx)
-            self.bufs[k] = self.fill(buf, slot_idx)
+            buf = (self.bufs[k] if self.keep and self.bufs[k] is not None
+                   else self.zeros(slot_idx, step))
+            self.bufs[k] = self.fill(buf, slot_idx, step)
             return
         with torch.cuda.stream(self.side):
             if self.consumed[k] is not None:
                 self.side.wait_event(self.consumed[k])
-            buf = self.bufs[k] if self.keep and self.bufs[k] is not None else self.zeros(slot_idx)
-            self.bufs[k] = self.fill(buf, slot_idx)
+            buf = (self.bufs[k] if self.keep and self.bufs[k] is not None
+                   else self.zeros(slot_idx, step))
+            self.bufs[k] = self.fill(buf, slot_idx, step)
             self.uploaded[k] = torch.cuda.Event()
             self.uploaded[k].record(self.side)
 
@@ -158,12 +197,316 @@ class Standby:
             self.main.wait_stream(self.side)
 
 
+class _Step:
+    """What the work of one optimizer step reads and sums: the shards of the
+    parameter version it injects, its replicated weights and embeddings
+    (of that version), its batch cut by worker and round, and its
+    accumulators, made at first use (on deep plans a step's first fused
+    slot comes after the previous step's deposit-complete tick, so only one
+    step's accumulators ever live)."""
+
+    def __init__(self, rm: RingMachine, params, qpool, batch, *, cfg, n: int, r_total: int,
+                 frozen: bool):
+        self.pool = rm.shards(params["layers"])
+        self.a_pool = rm.shards(params["lora"]) if frozen else None
+        self.qpool = qpool
+        head_w = T.lm_head_weights(params, cfg)
+        fnorm = params["final_norm"]
+        if frozen:              # nothing of the base takes part in autograd
+            head_w, fnorm = head_w.detach(), tree_map(torch.Tensor.detach, fnorm)
+        self.head_w, self.fnorm = head_w, fnorm
+        tokens, labels = batch["tokens"], batch["labels"]
+        if tokens.shape[0] != r_total:
+            raise ValueError(f"batch of {tokens.shape[0]} rounds for a step of {r_total}")
+        if tokens.shape[1] % n:
+            raise ValueError(f"a round's batch of {tokens.shape[1]} does not divide over {n} "
+                             "workers")
+        bw = tokens.shape[1] // n
+        self.tok_w = [[tokens[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
+        self.lab_w = [[labels[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
+        with torch.no_grad():
+            self.x_emb = [[T.embed_inputs(params, {"tokens": self.tok_w[w][r]}, cfg)
+                           for r in range(r_total)] for w in range(n)]
+        self._params, self._frozen = params, frozen
+        self._acc = None
+
+    def acc(self) -> dict:
+        if self._acc is None:
+            A, dev, p = StepAccum, self.head_w.device, self._params
+            self._acc = {"loss": A.zeros((), torch.float32, dev),
+                         "tokens": A.zeros((), torch.int64, dev)}
+            if not self._frozen:
+                self._acc.update(embed=A.zeros(p["embed"].shape, torch.float32, dev),
+                                 head=A.zeros(self.head_w.shape, torch.float32, dev),
+                                 fnorm=A.tree_zeros(p["final_norm"], torch.float32))
+        return self._acc
+
+
+def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, program,
+           n_workers: int, l_pad: int, xent_chunk: int, ring_grad_dtype, prefetch_program,
+           lora, pool_dtype: str, grad_compress: str, transport):
+    """Run ``program`` (I steps of R rounds each) over the slot ring.
+
+    ``batches[k]`` is step k's batch, round-major ``(R, B/R, ...)``. Step T
+    reads version ``v_{max(0, T-1)}`` (``v_0 = params``). At step k's
+    deposit-complete tick ``D_k`` the driver calls ``update(k, grads, loss,
+    tokens, retired)``: ``grads`` are step k's (exactly ``n_layers`` pool
+    rows), ``retired`` is ``v_{k-1}``, whose last reader has just finished
+    (None for k = 0), and the return value, if not None, is published as
+    ``v_{k+1}``. Returns the versions still held (``v_{I-1}``, ``v_I``)."""
+    frozen = lora is not None
+    compress = grad_compress != "none"
+    quant = pool_dtype != "none"
+    n = n_workers
+    l_total = cfg.n_layers
+    slots = plan.stages
+    sf = plan.n_fwd
+    s_total = plan.n_slots
+    r_total, steps = program.rounds, program.iterations
+    live = steps * r_total * s_total            # stitched slots each worker runs
+    rm = RingMachine(cfg=cfg, plan=plan, n_workers=n, l_pad=l_pad,
+                     transport=transport or OneCardTransport(n), xent_chunk=xent_chunk,
+                     pool_template=params["layers"][0], prefetch_program=prefetch_program,
+                     pool_dtype=pool_dtype, lora=lora)
+    A = StepAccum
+    dev = params["embed"].device
+    versions = {0: params}
+    qpools = {}                 # version -> its quantized image (frozen base: v_0's only)
+
+    def qpool_of(v):
+        if v not in qpools:
+            with torch.no_grad():
+                qpools[v] = rm.quantize_pool(rm.shards(versions[v]["layers"]))
+        return qpools[v]
+
+    open_steps = {}
+
+    def step_of(k) -> _Step:
+        st = open_steps.get(k)
+        if st is None:
+            v = max(0, k - 1)
+            if v not in versions:
+                raise RuntimeError(f"step {k} reads version {v}, which is not published yet")
+            st = open_steps[k] = _Step(rm, versions[v], qpool_of(0 if frozen else v)
+                                       if quant else None, batches[k], cfg=cfg, n=n,
+                                       r_total=r_total, frozen=frozen)
+        return st
+
+    # ---- per-worker state ----------------------------------------------------
+    act = [None] * n
+    stash = [[None] * (l_total + 1) for _ in range(n)]
+    grad_carry = [None] * n
+    ring = [None] * n                   # traveling blocks
+    a_ring = [None] * n                 # traveling adapter blocks (frozen base)
+    gbuf = [None] * n                   # their traveling gradient buffers
+    grad_shards = [[None] * rm.per for _ in range(n)]
+    res_shards = rm.shards(grad_residual) if compress else None
+    step_of(0)
+
+    # ---- codec: the quant-aware calls ----------------------------------------
+    def _upload(stand, slot_idx, k):
+        st = step_of(k)
+        if quant:
+            return rm.upload_slot_q(stand, slot_idx, st.qpool)
+        return rm.upload_slot(stand, slot_idx, st.pool)
+
+    def _zeros(slot_idx, k):
+        return rm.zeros_standby_q(step_of(k).qpool) if quant else rm.zeros_standby(
+            slots[slot_idx].size)
+
+    def _assemble(spec, st):
+        return rm.assemble_block_q(spec, st.qpool) if quant else rm.assemble_block(spec, st.pool)
+
+    def _promote(stand, spec):
+        return rm.dequant_block(*stand, spec) if quant else rm.promote_standby(stand, spec)
+
+    def do_plain(w, spec, blk, ablk, slot_i, ri, st):
+        with torch.no_grad():
+            x = st.x_emb[w][ri] if slot_i == 0 else act[w]
+            for k, lw in enumerate(blk):
+                stash[w][spec.layers[k]] = x
+                x = rm.layer_fwd(x, lw, None if ablk is None else ablk[k])
+            act[w] = x
+
+    def do_fused_frozen(w, blk, ablk, slot_i, ri, st):
+        """The FB slot on the merged weights, differentiated with respect to
+        the adapter block and the slot's input only."""
+        acc = st.acc()
+        x_in = st.x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
+        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
+        with torch.enable_grad():
+            ablk_l, x_l = _leaf(ablk), x_in.detach().requires_grad_()
+            tot, cnt = rm.fused_loss(base, st.fnorm, st.head_w, x_l, st.lab_w[w][ri], ablk_l)
+            grads = torch.autograd.grad(tot, tree_leaves(ablk_l) + [x_l])
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
+        A.add(acc["loss"], tot.detach())
+        A.add(acc["tokens"], cnt)
+        grad_carry[w] = grads[-1].float()
+
+    def do_bwd_frozen(w, spec, blk, ablk):
+        """A B slot recomputed from the stash on the merged weights; grads
+        with respect to the adapter block and the block's input."""
+        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
+        with torch.enable_grad():
+            ablk_l, x_l = _leaf(ablk), stash[w][spec.start].detach().requires_grad_()
+            y = rm.stage_fwd(base, x_l, ablk_l)
+            grads = torch.autograd.grad(y, tree_leaves(ablk_l) + [x_l],
+                                        grad_outputs=grad_carry[w].to(y.dtype))
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
+        grad_carry[w] = grads[-1].float()
+
+    def do_fused(w, spec, blk, slot_i, ri, st):
+        acc = st.acc()
+        x_in = st.x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
+        with torch.enable_grad():
+            blk_l, fn_l = _leaf(blk), _leaf(st.fnorm)
+            hw_l, x_l = st.head_w.detach().requires_grad_(), x_in.detach().requires_grad_()
+            tot, cnt = rm.fused_loss(blk_l, fn_l, hw_l, x_l, st.lab_w[w][ri])
+            wrt = tree_leaves(blk_l) + tree_leaves(fn_l) + [hw_l, x_l]
+            grads = torch.autograd.grad(tot, wrt)
+        nb = len(tree_leaves(blk_l))
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(blk_l, grads[:nb]))
+        A.tree_add_f32(acc["fnorm"], _unflatten(fn_l, grads[nb:-2]))
+        A.add_f32(acc["head"], grads[-2])
+        gx = grads[-1]
+        if sf == 0 and spec.layers:
+            A.token_add(acc["embed"], st.tok_w[w][ri], gx)
+        A.add(acc["loss"], tot.detach())
+        A.add(acc["tokens"], cnt)
+        grad_carry[w] = gx.float()
+
+    def do_bwd(w, spec, blk, ri, st):
+        x_in = stash[w][spec.start]
+        with torch.enable_grad():
+            blk_l, x_l = _leaf(blk), x_in.detach().requires_grad_()
+            y = rm.stage_fwd(blk_l, x_l)
+            wrt = tree_leaves(blk_l) + [x_l]
+            grads = torch.autograd.grad(y, wrt, grad_outputs=grad_carry[w].to(y.dtype))
+        gbuf[w] = gbuf_add(gbuf[w], _unflatten(blk_l, grads[:-1]))
+        gx = grads[-1]
+        if spec.start == 0 and spec.size > 0:
+            A.token_add(st.acc()["embed"], st.tok_w[w][ri], gx)
+        grad_carry[w] = gx.float()
+
+    def drained(k):
+        """Step k's gradients, mean loss and token count, off its accumulators."""
+        st = open_steps.pop(k)
+        acc = st.acc()
+        layer_grads = [row for shard in grad_shards for row in shard][:l_total]
+        if any(g is None for g in layer_grads):
+            raise RuntimeError("a layer received no gradient deposit: the plan does not "
+                               "cover every layer with a fused or backward slot")
+        scale = 1.0 / torch.clamp(acc["tokens"].float(), min=1.0)
+        if frozen:      # exactly the adapters: no base gradient was ever formed
+            grads = {"lora": layer_grads}
+        else:
+            grads = {"embed": acc["embed"], "layers": layer_grads, "final_norm": acc["fnorm"]}
+            if "lm_head" in params:
+                grads["lm_head"] = acc["head"]
+            else:                                      # tied embeddings
+                grads["embed"] = acc["embed"].add_(acc["head"].T)
+        grads = tree_map(lambda g: g.mul_(scale), grads)
+        return grads, acc["loss"] * scale, acc["tokens"]
+
+    standby = None
+    if prefetch_program is not None:
+        # fill prologue: slot 0 has no earlier compute to hide behind
+        standby = Standby(dev, _zeros, _upload, _promote, keep=quant)
+        standby.upload(0, 0)
+
+    # The driver consumes the generated schedule IR: tick t injects slot
+    # entry[1] of global round entry[0] at worker 0; worker w holds stitched
+    # slot t - w. The N-1 drain ticks are paid once per call, not once per
+    # round or step.
+    for rec in program.records:
+        t = rec.t
+        ring = rm.shift(ring)
+        gbuf = rm.shift(gbuf)
+        if frozen:
+            a_ring = rm.shift(a_ring)
+        upload = rec.upload if standby is not None else None
+        if rec.entry is not None:
+            spec = slots[rec.entry[1]]
+            st = step_of(rec.inject_step)
+            if standby is not None:
+                ring[0] = standby.promote(spec) if spec.size else []
+                # double-buffer swap: the next tick's slot streams into the
+                # other standby while this tick computes, as soon as the
+                # version it reads exists (else after this tick's update)
+                if upload is not None and (max(0, upload[1] - 1) in versions
+                                           or upload[1] in open_steps):
+                    standby.upload(*upload)
+                    upload = None
+            else:
+                ring[0] = _assemble(spec, st)
+            if frozen:
+                # adapters are ~100-1000x smaller than the block: gathered
+                # whole at injection, even under prefetch
+                a_ring[0] = rm.assemble_block(spec, st.a_pool)
+            gbuf[0] = None if spec.kind == "F" else zeros_block(
+                a_ring[0] if frozen else ring[0], ring_grad_dtype)
+        for w in range(n):
+            fb = t - w
+            if not 0 <= fb < live:
+                continue
+            g_round, slot_i = divmod(fb, s_total)
+            k, ri = divmod(g_round, r_total)
+            st = open_steps[k]
+            spec, blk, ablk = slots[slot_i], ring[w], a_ring[w]
+            # a named range per slot kind: a profiler trace reads each kind's
+            # device time from it
+            with record_function(f"roundpipe.{spec.kind}"):
+                if slot_i < sf:
+                    do_plain(w, spec, blk, ablk, slot_i, ri, st)
+                elif frozen:
+                    if slot_i == sf:
+                        do_fused_frozen(w, blk, ablk, slot_i, ri, st)
+                    else:
+                        do_bwd_frozen(w, spec, blk, ablk)
+                elif slot_i == sf:
+                    do_fused(w, spec, blk, slot_i, ri, st)
+                else:
+                    do_bwd(w, spec, blk, ri, st)
+        # the slot exiting at worker N-1 deposits its reduced rows; each
+        # round's wave sums into the same rows
+        if rec.deposit is not None:
+            for k, lid in enumerate(slots[rec.deposit].layers):
+                if compress:
+                    rm.deposit_ef(grad_shards, res_shards, block_row(gbuf[n - 1], k), lid)
+                else:
+                    rm.deposit_plain(grad_shards, block_row(gbuf[n - 1], k), lid)
+        # D_k: step k's gradients have all reached their owners
+        if rec.update_step is not None:
+            k = rec.update_step
+            grads, loss, tokens = drained(k)
+            grad_shards = [[None] * rm.per for _ in range(n)]
+            ring[n - 1] = gbuf[n - 1] = a_ring[n - 1] = None    # step k's last block
+            # v_{k-1}'s last reader, step k, is done: its buffers take v_{k+1}
+            retired = versions.pop(k - 1) if k >= 1 else None
+            if not frozen:
+                qpools.pop(k - 1, None)
+            with record_function("roundpipe.apply_updates"):
+                new = update(k, grads, loss, tokens, retired)
+                if new is not None:
+                    versions[k + 1] = new
+                    if quant and not frozen and k + 2 < steps:
+                        qpool_of(k + 1)     # the one quantize pass of v_{k+1}
+            del grads, retired
+            if standby is not None:
+                standby.follow()
+        if upload is not None:
+            standby.upload(*upload)
+    if standby is not None:
+        standby.finish()
+    return versions
+
+
 def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelConfig, plan,
                                n_workers: int, l_pad: int, xent_chunk: int = 256,
                                kv_chunk: int = 1024, ring_grad_dtype=torch.float32,
                                prefetch_program=None, lora=None, rounds=None,
                                pool_dtype: str = "none", grad_compress: str = "none",
-                               g0: int = 0, transport=None):
+                               tick_program=None, g0: int = 0, transport=None):
     """Run one step's slot ring over the global batch and return (grads,
     mean loss, token count), and with ``grad_compress`` the residual too.
 
@@ -179,234 +522,107 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     ``grad_residual`` (fp32, a list of layer dicts shaped like the pool, or
     like the adapters with ``lora``) as the carried error, updated in place.
     ``lora`` (a ``LoraConfig``) runs the frozen-base mode on
-    ``params["lora"]`` and returns ``{"lora": grads}``. ``transport`` moves
-    payloads between the logical workers (``OneCardTransport`` by default)."""
+    ``params["lora"]`` and returns ``{"lora": grads}``. ``tick_program``
+    supplies the generated schedule IR (validated against the plan);
+    ``transport`` moves payloads between the logical workers
+    (``OneCardTransport`` by default)."""
     _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
-    frozen = lora is not None
-    compress = grad_compress != "none"
-    if compress and grad_residual is None:
+    if grad_compress != "none" and grad_residual is None:
         raise ValueError("grad_compress needs the grad_residual tree (init_roundpipe_state "
                          "puts it beside the optimizer state)")
-    multi = rounds is not None
-    r_total = rounds if multi else 1
-    program = plan.tick_program(r_total)
     if "embeds" in batch:
         T.embed_inputs(params, batch, cfg)      # raises: the frontend is a later slice
-    n = n_workers
-    l_total = cfg.n_layers
-    slots = plan.stages
-    sf = plan.n_fwd
-    s_total = plan.n_slots
-    live = r_total * s_total                    # stitched slots each worker runs
+    r_total = rounds or 1
+    program = (_check_program(tick_program, plan, r_total, 1) if tick_program is not None
+               else plan.tick_program(r_total))
     del kv_chunk                        # the flash kernel tiles by itself
-    rm = RingMachine(cfg=cfg, plan=plan, n_workers=n, l_pad=l_pad,
-                     transport=transport or OneCardTransport(n), xent_chunk=xent_chunk,
-                     pool_template=params["layers"][0], prefetch_program=prefetch_program,
-                     pool_dtype=pool_dtype, lora=lora)
-    pool = rm.shards(params["layers"])
-    a_pool = rm.shards(params["lora"]) if frozen else None
-    A = StepAccum
-    head_w = T.lm_head_weights(params, cfg)
-    if frozen:                  # nothing of the base takes part in autograd
-        head_w, fnorm = head_w.detach(), tree_map(torch.Tensor.detach, params["final_norm"])
-    tokens, labels = batch["tokens"], batch["labels"]
-    if not multi:
-        tokens, labels = tokens[None], labels[None]
-    if tokens.shape[0] != r_total:
-        raise ValueError(f"batch of {tokens.shape[0]} rounds for a step of {r_total}")
-    if tokens.shape[1] % n:
-        raise ValueError(f"a round's batch of {tokens.shape[1]} does not divide over {n} "
-                         "workers")
-    bw = tokens.shape[1] // n
-    tok_w = [[tokens[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
-    lab_w = [[labels[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
-    dev = head_w.device
+    if rounds is None:
+        batch = {k: v[None] for k, v in batch.items()}
+    out = {}
 
-    # ---- per-worker state ----------------------------------------------------
-    with torch.no_grad():
-        x_emb = [[T.embed_inputs(params, {"tokens": tok_w[w][r]}, cfg) for r in range(r_total)]
-                 for w in range(n)]
-    act = [None] * n
-    stash = [[None] * (l_total + 1) for _ in range(n)]
-    grad_carry = [None] * n
-    ring = [None] * n                   # traveling blocks
-    a_ring = [None] * n                 # traveling adapter blocks (frozen base)
-    gbuf = [None] * n                   # their traveling gradient buffers
-    grad_shards = [[None] * rm.per for _ in range(n)]
-    res_shards = rm.shards(grad_residual) if compress else None
-    loss_sum = A.zeros((), torch.float32, dev)
-    tok_count = A.zeros((), torch.int64, dev)
-    if not frozen:
-        embed_grad = A.zeros(params["embed"].shape, torch.float32, dev)
-        head_grad = A.zeros(head_w.shape, torch.float32, dev)
-        fnorm_grad = A.tree_zeros(params["final_norm"], torch.float32)
+    def update(k, grads, loss, tokens, retired):
+        out.update(grads=grads, loss=loss, tokens=tokens)
 
-    # ---- codec: one quantization pass per step, and the quant-aware calls ----
-    quant = pool_dtype != "none"
-    if quant:
-        with torch.no_grad():
-            qpool = rm.quantize_pool(pool)
+    _drive(params, [batch], grad_residual, update, cfg=cfg,
+           plan=plan, program=program, n_workers=n_workers, l_pad=l_pad, xent_chunk=xent_chunk,
+           ring_grad_dtype=ring_grad_dtype, prefetch_program=prefetch_program, lora=lora,
+           pool_dtype=pool_dtype, grad_compress=grad_compress, transport=transport)
+    if grad_compress != "none":
+        return out["grads"], out["loss"], out["tokens"], grad_residual
+    return out["grads"], out["loss"], out["tokens"]
 
-    def _upload(stand, slot_idx):
-        if quant:
-            return rm.upload_slot_q(stand, slot_idx, qpool)
-        return rm.upload_slot(stand, slot_idx, pool)
 
-    def _zeros(slot_idx):
-        return rm.zeros_standby_q(qpool) if quant else rm.zeros_standby(slots[slot_idx].size)
+def roundpipe_async_forward_backward(params, opt_state, batches, *, cfg: ModelConfig, plan,
+                                     n_workers: int, l_pad: int, steps: int, rounds: int,
+                                     opt_cfg, xent_chunk: int = 256, kv_chunk: int = 1024,
+                                     ring_grad_dtype=torch.float32, prefetch_program=None,
+                                     lora=None, pool_dtype: str = "none",
+                                     grad_compress: str = "none", tick_program=None,
+                                     g0: int = 0, transport=None):
+    """The cross-step chained body (paper §4.3, DESIGN.md §6): ``steps``
+    optimizer iterations back to back in one ring program of ``I*R*S + N -
+    1`` ticks. Step T's injections and traced work read ``v_{T-1}``; at step
+    k's deposit-complete tick ``D_k`` the optimizer (``apply_updates`` on
+    ``opt_state``, in place) consumes step k's drained gradients and
+    publishes ``v_{k+1}``; the last update is applied before returning (the
+    flush), so the result matches ``core.consistency.reference_staleness1``
+    over ``steps`` iterations.
 
-    def _assemble(spec):
-        return rm.assemble_block_q(spec, qpool) if quant else rm.assemble_block(spec, pool)
+    ``batches`` leaves are ``(I, R, B/R, ...)``. Returns ``(params,
+    opt_state, metrics)`` with ``metrics["loss"/"tokens"/"grad_norm"]`` of
+    shape ``(I,)``. The call takes the parameter tensors of ``params`` as
+    its own, as the reference's compiled step donates them: ``v_2`` is
+    written into them, and a caller that still needs ``v_0`` keeps a copy.
 
-    def _promote(stand, spec):
-        return rm.dequant_block(*stand, spec) if quant else rm.promote_standby(stand, spec)
+    ``lora`` selects the frozen-base mode: the dense pool is read-only (and
+    comes back as the same tensors) and only the adapters version; the
+    optimizer state covers the adapters only. ``pool_dtype`` injects each
+    version quantized: ``v_{k+1}`` is quantized inside ``D_k`` when a later
+    step reads it (one pass per version read; a frozen base is quantized
+    once). ``grad_compress="int8"`` runs the deposits through the
+    error-feedback codec with the residual ``opt_state["grad_residual"]``
+    threading across the chained steps."""
+    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
+    if "embeds" in batches:
+        T.embed_inputs(params, batches, cfg)    # raises: the frontend is a later slice
+    program = (_check_program(tick_program, plan, rounds, steps) if tick_program is not None
+               else plan.tick_program(rounds, steps))
+    del kv_chunk
+    frozen = lora is not None
+    opt = dict(opt_state)
+    residual = opt.pop("grad_residual", None)
+    if grad_compress != "none" and residual is None:
+        raise ValueError("grad_compress needs opt_state['grad_residual']")
+    pool_key = "lora" if frozen else "layers"
+    pad = params[pool_key][cfg.n_layers:]          # padding rows: zero gradients
+    mask = param_mask(params) if frozen else None
+    losses, toks, gnorms = [], [], []
 
-    def do_plain(w, spec, blk, ablk, slot_i, ri):
-        with torch.no_grad():
-            x = x_emb[w][ri] if slot_i == 0 else act[w]
-            for k, lw in enumerate(blk):
-                stash[w][spec.layers[k]] = x
-                x = rm.layer_fwd(x, lw, None if ablk is None else ablk[k])
-            act[w] = x
-
-    def do_fused_frozen(w, blk, ablk, slot_i, ri):
-        """The FB slot on the merged weights, differentiated with respect to
-        the adapter block and the slot's input only."""
-        x_in = x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
-        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
-        with torch.enable_grad():
-            ablk_l, x_l = _leaf(ablk), x_in.detach().requires_grad_()
-            tot, cnt = rm.fused_loss(base, fnorm, head_w, x_l, lab_w[w][ri], ablk_l)
-            grads = torch.autograd.grad(tot, tree_leaves(ablk_l) + [x_l])
-        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
-        A.add(loss_sum, tot.detach())
-        A.add(tok_count, cnt)
-        grad_carry[w] = grads[-1].float()
-
-    def do_bwd_frozen(w, spec, blk, ablk):
-        """A B slot recomputed from the stash on the merged weights; grads
-        with respect to the adapter block and the block's input."""
-        base = [tree_map(torch.Tensor.detach, lw) for lw in blk]
-        with torch.enable_grad():
-            ablk_l, x_l = _leaf(ablk), stash[w][spec.start].detach().requires_grad_()
-            y = rm.stage_fwd(base, x_l, ablk_l)
-            grads = torch.autograd.grad(y, tree_leaves(ablk_l) + [x_l],
-                                        grad_outputs=grad_carry[w].to(y.dtype))
-        gbuf[w] = gbuf_add(gbuf[w], _unflatten(ablk_l, grads[:-1]))
-        grad_carry[w] = grads[-1].float()
-
-    def do_fused(w, spec, blk, slot_i, ri):
-        x_in = x_emb[w][ri] if slot_i == 0 else act[w]      # slot_i == 0: Sf == 0 edge
-        with torch.enable_grad():
-            blk_l, fn_l = _leaf(blk), _leaf(params["final_norm"])
-            hw_l, x_l = head_w.detach().requires_grad_(), x_in.detach().requires_grad_()
-            tot, cnt = rm.fused_loss(blk_l, fn_l, hw_l, x_l, lab_w[w][ri])
-            wrt = tree_leaves(blk_l) + tree_leaves(fn_l) + [hw_l, x_l]
-            grads = torch.autograd.grad(tot, wrt)
-        nb = len(tree_leaves(blk_l))
-        gbuf[w] = gbuf_add(gbuf[w], _unflatten(blk_l, grads[:nb]))
-        A.tree_add_f32(fnorm_grad, _unflatten(fn_l, grads[nb:-2]))
-        A.add_f32(head_grad, grads[-2])
-        gx = grads[-1]
-        if sf == 0 and spec.layers:
-            A.token_add(embed_grad, tok_w[w][ri], gx)
-        A.add(loss_sum, tot.detach())
-        A.add(tok_count, cnt)
-        grad_carry[w] = gx.float()
-
-    def do_bwd(w, spec, blk, ri):
-        x_in = stash[w][spec.start]
-        with torch.enable_grad():
-            blk_l, x_l = _leaf(blk), x_in.detach().requires_grad_()
-            y = rm.stage_fwd(blk_l, x_l)
-            wrt = tree_leaves(blk_l) + [x_l]
-            grads = torch.autograd.grad(y, wrt, grad_outputs=grad_carry[w].to(y.dtype))
-        gbuf[w] = gbuf_add(gbuf[w], _unflatten(blk_l, grads[:-1]))
-        gx = grads[-1]
-        if spec.start == 0 and spec.size > 0:
-            A.token_add(embed_grad, tok_w[w][ri], gx)
-        grad_carry[w] = gx.float()
-
-    standby = None
-    if prefetch_program is not None:
-        # fill prologue: slot 0 has no earlier compute to hide behind
-        standby = Standby(dev, _zeros, _upload, _promote, keep=quant)
-        standby.upload(0)
-
-    # The driver consumes the generated schedule IR: tick t injects slot
-    # entry[1] of round entry[0] at worker 0; worker w holds stitched slot
-    # t - w. The N-1 drain ticks are paid once per step, not once per round.
-    for rec in program.records:
-        t = rec.t
-        ring = rm.shift(ring)
-        gbuf = rm.shift(gbuf)
+    def update(k, grads, loss, tokens, retired):
+        grads[pool_key] += [tree_map(torch.zeros_like, p) for p in pad]
         if frozen:
-            a_ring = rm.shift(a_ring)
-        if rec.entry is not None:
-            spec = slots[rec.entry[1]]
-            if standby is not None:
-                ring[0] = standby.promote(spec) if spec.size else []
-                # double-buffer swap: the next tick's slot streams into the
-                # other standby while this tick computes; each round replays
-                # the per-slot chunk tables
-                if rec.upload is not None:
-                    standby.upload(rec.upload[0])
-            else:
-                ring[0] = _assemble(spec)
-            if frozen:
-                # adapters are ~100-1000x smaller than the block: gathered
-                # whole at injection, even under prefetch
-                a_ring[0] = rm.assemble_block(spec, a_pool)
-            gbuf[0] = None if spec.kind == "F" else zeros_block(
-                a_ring[0] if frozen else ring[0], ring_grad_dtype)
-        for w in range(n):
-            fb = t - w
-            if not 0 <= fb < live:
-                continue
-            ri, slot_i = divmod(fb, s_total)
-            spec, blk, ablk = slots[slot_i], ring[w], a_ring[w]
-            # a named range per slot kind: a profiler trace reads each kind's
-            # device time from it
-            with record_function(f"roundpipe.{spec.kind}"):
-                if slot_i < sf:
-                    do_plain(w, spec, blk, ablk, slot_i, ri)
-                elif frozen:
-                    if slot_i == sf:
-                        do_fused_frozen(w, blk, ablk, slot_i, ri)
-                    else:
-                        do_bwd_frozen(w, spec, blk, ablk)
-                elif slot_i == sf:
-                    do_fused(w, spec, blk, slot_i, ri)
-                else:
-                    do_bwd(w, spec, blk, ri)
-        # the slot exiting at worker N-1 deposits its reduced rows; each
-        # round's wave sums into the same rows
-        if rec.deposit is not None:
-            for k, lid in enumerate(slots[rec.deposit].layers):
-                if compress:
-                    rm.deposit_ef(grad_shards, res_shards, block_row(gbuf[n - 1], k), lid)
-                else:
-                    rm.deposit_plain(grad_shards, block_row(gbuf[n - 1], k), lid)
-    if standby is not None:
-        standby.finish()
+            out = trainable_leaves(retired, mask) if retired is not None else None
+            new_tr, _, m = apply_updates(opt, grads, opt_cfg,
+                                         param_like=trainable_leaves(params, mask), out=out)
+            new = merge_trainable(params, new_tr, mask)
+        else:
+            new, _, m = apply_updates(opt, grads, opt_cfg, param_like=params, out=retired)
+        losses.append(loss)
+        toks.append(tokens)
+        gnorms.append(m["grad_norm"])
+        return new
 
-    layer_grads = [row for shard in grad_shards for row in shard][:l_total]
-    if any(g is None for g in layer_grads):
-        raise RuntimeError("a layer received no gradient deposit: the plan does not "
-                           "cover every layer with a fused or backward slot")
-    scale = 1.0 / torch.clamp(tok_count.float(), min=1.0)
-    if frozen:      # exactly the adapters: no base gradient was ever formed
-        grads = {"lora": layer_grads}
-    else:
-        grads = {"embed": embed_grad, "layers": layer_grads, "final_norm": fnorm_grad}
-        if "lm_head" in params:
-            grads["lm_head"] = head_grad
-        else:                                      # tied embeddings
-            grads["embed"] = embed_grad.add_(head_grad.T)
-    grads = tree_map(lambda g: g.mul_(scale), grads)
-    if compress:
-        return grads, loss_sum * scale, tok_count, grad_residual
-    return grads, loss_sum * scale, tok_count
+    batch_list = [{key: v[i] for key, v in batches.items()} for i in range(steps)]
+    versions = _drive(params, batch_list, residual, update, cfg=cfg, plan=plan,
+                      program=program, n_workers=n_workers, l_pad=l_pad,
+                      xent_chunk=xent_chunk, ring_grad_dtype=ring_grad_dtype,
+                      prefetch_program=prefetch_program, lora=lora, pool_dtype=pool_dtype,
+                      grad_compress=grad_compress, transport=transport)
+    if residual is not None:
+        opt["grad_residual"] = residual
+    metrics = {"loss": torch.stack(losses), "tokens": torch.stack(toks),
+               "grad_norm": torch.stack(gnorms), "step": opt["step"]}
+    return versions[steps], opt, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +732,29 @@ def build_roundpipe_grads_fn(cfg: ModelConfig, n_workers: int, plan, *, xent_chu
     return grads_fn
 
 
+def _select_schedule(step_cfg, plan, rounds: int, iterations: int):
+    """Resolve ``step_cfg.schedule`` into the tick program the driver runs.
+
+    ``"hand"`` (default) returns None: the driver generates the canonical
+    ``plan.tick_program``. ``"searched"`` runs
+    ``core.simulator.search_schedule`` over the schedule family (under
+    ``step_cfg.device_scale``) and returns the certified winner's program.
+    The ring does not rotate yet, so a winner with a rotation (``g0 != 0``)
+    is refused by name; it never runs as g0 = 0."""
+    sel = getattr(step_cfg, "schedule", "hand")
+    if sel == "hand":
+        return None
+    if sel == "searched":
+        from repro_torch.core.simulator import search_schedule
+        result = search_schedule(plan, rounds * plan.n_workers, iterations=iterations,
+                                 device_scale=getattr(step_cfg, "device_scale", None))
+        if result.program.g0 != 0:
+            _refuse(f"the searched schedule {result.choice.name!r} rotates the ring "
+                    f"(g0={result.program.g0}), which", "item 11, the supervisor")
+        return result.program
+    raise ValueError(f"unknown schedule selector {sel!r}: expected 'hand' or 'searched'")
+
+
 def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, global_batch: int,
                                seq_len: int, *, plan=None, round_major: bool = False,
                                transport=None):
@@ -532,6 +771,8 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
     ``state["opt"]["grad_residual"]``. ``step_cfg.lora`` trains the adapters
     only: the optimizer updates ``trainable_leaves(params, param_mask(params))``
     and the frozen base passes through untouched (the same tensors).
+    ``step_cfg.schedule="searched"`` runs the searched schedule's program
+    (``_select_schedule``).
 
     The train state keeps the pool padded at rest (``init_roundpipe_state``).
     Returns ``(step, plan)``; ``step(state, batch) -> (state, metrics)``
@@ -541,8 +782,6 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
     if getattr(step_cfg, "strategy", "roundpipe") != "roundpipe":
         raise NotImplementedError(f"strategy {step_cfg.strategy!r} " + _LATER.format(
             "baselines and tooling"))
-    if getattr(step_cfg, "schedule", "hand") != "hand":
-        _refuse(f"schedule {step_cfg.schedule!r}", "chained async optimizer")
     if plan is None:
         plan = resolve_plan(cfg, step_cfg, n_workers)
     m_micro = getattr(step_cfg, "n_microbatches", None)
@@ -552,6 +791,7 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
         if global_batch % m_micro:
             raise ValueError(f"global batch {global_batch} must be divisible by "
                              f"n_microbatches {m_micro} (micro-batch size = global_batch / M)")
+    ticks = _select_schedule(step_cfg, plan, rounds or 1, 1)
     if round_major and rounds is None:
         raise ValueError("round_major=True requires the multi-round path "
                          "(set step_cfg.n_microbatches)")
@@ -567,7 +807,7 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
                     prefetch_program=program, lora=lora,
                     pool_dtype=getattr(step_cfg, "pool_dtype", "none"),
                     grad_compress=getattr(step_cfg, "grad_compress", "none"),
-                    g0=getattr(step_cfg, "g0", 0), transport=transport)
+                    g0=getattr(step_cfg, "g0", 0), tick_program=ticks, transport=transport)
 
     def train_step(state, batch):
         if rounds is not None and not round_major:
@@ -594,6 +834,102 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step, plan
+
+def build_roundpipe_async_train_step(cfg: ModelConfig, n_workers: int, step_cfg,
+                                     global_batch: int, seq_len: int, *, steps_per_call: int,
+                                     plan=None, overlap: bool = True, transport=None):
+    """The cross-step staleness-1 train program (paper §4.3, DESIGN.md §6):
+    ``multi_step(state, batches) -> (state, metrics)`` runs
+    ``steps_per_call`` optimizer steps back to back in one chained ring
+    program (``roundpipe_async_forward_backward``), so the fill/drain bubble
+    amortizes to ``(N-1)/(I*R*S + N-1)`` (``simulate_plan(...,
+    iterations=I)``).
+
+    ``batches`` leaves carry a leading ``(steps_per_call,)`` axis of flat
+    global batches; ``metrics["loss"/"tokens"/"grad_norm"]`` come back with
+    shape ``(steps_per_call,)``. The state is the synchronous step's
+    ``{"params", "opt"}`` (``init_roundpipe_state``), so checkpoints
+    interchange; its parameter tensors are taken over by the call (see
+    ``roundpipe_async_forward_backward``) and the optimizer state is updated
+    in place. The last update is applied before returning, so the result
+    matches ``core.consistency.reference_staleness1``.
+
+    The program is certified at build time: ``plan.validate_async(R)``, then
+    ``verify_async_ticks(plan, R, I, program=...)``. ``overlap=False`` loops
+    the synchronous step (staleness 0), bit-identical to calling
+    ``build_roundpipe_train_step``'s step ``steps_per_call`` times.
+    ``step_cfg.lora``, ``.pool_dtype``, ``.grad_compress``, ``.prefetch``
+    and ``.schedule`` compose as in the synchronous step.
+
+    Returns ``(multi_step, plan)``."""
+    from repro_torch.core.consistency import verify_async_ticks
+
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if global_batch % n_workers:
+        raise ValueError("global batch must divide over the workers")
+    if getattr(step_cfg, "strategy", "roundpipe") != "roundpipe":
+        raise NotImplementedError(f"strategy {step_cfg.strategy!r} " + _LATER.format(
+            "baselines and tooling"))
+    if plan is None:
+        plan = resolve_plan(cfg, step_cfg, n_workers)
+    m_micro = getattr(step_cfg, "n_microbatches", None) or n_workers
+    rounds = plan.rounds_for(m_micro)
+    if global_batch % m_micro:
+        raise ValueError(f"global batch {global_batch} must be divisible by n_microbatches "
+                         f"{m_micro}")
+
+    if not overlap:
+        sync_step, plan = build_roundpipe_train_step(cfg, n_workers, step_cfg, global_batch,
+                                                     seq_len, plan=plan, transport=transport)
+
+        def multi_step(state, batches):
+            per_step = []
+            for i in range(steps_per_call):
+                state, m = sync_step(state, {k: v[i] for k, v in batches.items()})
+                per_step.append(m)
+            metrics = {k: torch.stack([m[k] for m in per_step])
+                       for k in ("loss", "tokens", "grad_norm")}
+            metrics["step"] = per_step[-1]["step"]
+            return state, metrics
+
+        return multi_step, plan
+
+    plan = _plan_for(cfg, n_workers, plan)
+    plan.validate_async(rounds)
+    ticks = _select_schedule(step_cfg, plan, rounds, steps_per_call)
+    if ticks is None:
+        ticks = plan.tick_program(rounds, steps_per_call, g0=getattr(step_cfg, "g0", 0))
+    _check_options(pool_dtype=getattr(step_cfg, "pool_dtype", "none"),
+                   grad_compress=getattr(step_cfg, "grad_compress", "none"), g0=ticks.g0)
+    # certify that the chained tick order satisfies the five §4.3 constraints
+    # and that the program's annotations match the protocol replay
+    verify_async_ticks(plan, rounds, steps_per_call, program=ticks)
+    program = None
+    if getattr(step_cfg, "prefetch", True):
+        program = plan.prefetch_program(
+            chunk_limit=getattr(step_cfg, "prefetch_chunk_limit", None))
+        program.validate(plan)
+    body = functools.partial(
+        roundpipe_async_forward_backward, cfg=cfg, plan=plan, n_workers=n_workers,
+        l_pad=pool_rows(cfg, n_workers), steps=steps_per_call, rounds=rounds,
+        opt_cfg=step_cfg.opt, xent_chunk=step_cfg.xent_chunk, kv_chunk=step_cfg.kv_chunk,
+        ring_grad_dtype=step_cfg.accum_dtype, prefetch_program=program,
+        lora=getattr(step_cfg, "lora", None),
+        pool_dtype=getattr(step_cfg, "pool_dtype", "none"),
+        grad_compress=getattr(step_cfg, "grad_compress", "none"), tick_program=ticks,
+        transport=transport)
+
+    def multi_step(state, batches):
+        # (I, G, ...) -> (I, R, G/R, ...): step i's round r owns micro-batch
+        # groups r*N..(r+1)*N-1 of that step's global batch
+        batches = {k: v.reshape(v.shape[0], rounds, v.shape[1] // rounds, *v.shape[2:])
+                   for k, v in batches.items()}
+        params, opt, metrics = body(state["params"], state["opt"], batches)
+        return {"params": params, "opt": opt}, metrics
+
+    return multi_step, plan
+
 
 def init_roundpipe_state(generator, cfg: ModelConfig, step_cfg, n_workers: int | None = None,
                          *, dtype=torch.bfloat16, device="cuda"):

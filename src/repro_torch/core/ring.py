@@ -8,8 +8,11 @@ path (``chunk_elem_range``, ``upload_slot``, ``promote_standby``,
 ``zeros_standby``); the quantized codec (``quantize_pool``,
 ``zeros_standby_q``, ``upload_slot_q``, ``dequant_block``,
 ``assemble_block_q``); the helpers ``zeros_block``, ``block_row`` and
-``gbuf_add``, and the per-step accumulator family ``StepAccum``. The async
-accumulators (``ParityAccum``) are a later slice (ROADMAP.md, Queue 1).
+``gbuf_add``, and the per-step accumulator family ``StepAccum``. The
+reference's async accumulators (``ParityAccum``, 2-deep buffers indexed by a
+traced step) have no counterpart: here each worker's step at each tick is a
+Python int, so the chained driver keeps one ``StepAccum`` set per step
+(``core.dispatch._Step``) and frees it at the step's deposit-complete tick.
 
 The reference runs N workers as N devices under ``shard_map``, and a hop is
 a ``ppermute``. Here the N workers are logical: one process drives all of

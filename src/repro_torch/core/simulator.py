@@ -1,6 +1,5 @@
 # Copied from src/repro/core/simulator.py; tests/test_torch_plan.py holds the
-# copy equal to it, apart from search_schedule, which raises until the async
-# certificate (core/consistency.py) is ported.
+# copy equal to it.
 """Event-driven pipeline simulator (reproduces paper Fig. 15).
 
 Executes a :class:`~repro.core.schedule.Schedule` respecting (a) data
@@ -404,6 +403,46 @@ def search_schedule(plan, n_microbatches: int | None = None, *,
     score: the goodput supervisor calls this with the observed slowdown
     to pick the rotation that advances injection past the slow device.
     """
-    raise NotImplementedError(
-        "search_schedule is not ported yet: the port runs the hand schedule "
-        "(ROADMAP.md, Queue 1, item 10)")
+    n = plan.n_workers
+    m = n_microbatches or n
+    rsz = round_size or n
+    if m % rsz:
+        raise ValueError(f"n_microbatches {m} not divisible by "
+                         f"round_size {rsz}")
+    rounds = m // rsz
+    if candidates is None:
+        candidates = [ScheduleChoice("hand", transfer_mode=transfer_mode)]
+        for g0 in range(1, n):
+            candidates.append(ScheduleChoice(
+                f"rot{g0}", g0=g0, transfer_mode=transfer_mode))
+        if bandwidth is not None:
+            other = "block" if transfer_mode == "prefetch" else "prefetch"
+            candidates.append(ScheduleChoice(f"lane-{other}",
+                                             transfer_mode=other))
+            candidates.append(ScheduleChoice("standby-cache",
+                                             transfer_mode=transfer_mode,
+                                             standby_cache=True))
+    if not candidates or not candidates[0].executable:
+        raise ValueError("candidate 0 must be the executable hand config")
+
+    scored = []
+    best = None
+    best_bubble = None
+    for c in candidates:
+        res = simulate_plan(plan, m, round_size=rsz, iterations=iterations,
+                            bandwidth=bandwidth,
+                            transfer_mode=c.transfer_mode,
+                            standby_cache=c.standby_cache, g0=c.g0,
+                            device_scale=device_scale)
+        b = res.bubble_ratio
+        scored.append((c, b))
+        if c.executable and (best is None or b < best_bubble):
+            best, best_bubble = c, b
+
+    program = plan.tick_program(rounds, iterations, g0=best.g0)
+    if certify:
+        from .consistency import verify_async_ticks
+        verify_async_ticks(plan, rounds, iterations, program=program)
+    return SearchResult(choice=best, bubble=best_bubble,
+                        hand_bubble=scored[0][1], program=program,
+                        scored=scored)

@@ -1,9 +1,12 @@
 """Mixed-precision optimizer: AdamW and the Adafactor-factored variant.
 
 The PyTorch counterpart of ``repro/optim/adam.py``. The fp32 master and the
-moments are the paper's host-resident optimizer copy; in this slice they live
-on the device with the parameters (``placement="device"``), and
-``placement="host"`` raises until the host-offloaded copy is ported.
+moments are the paper's host-resident optimizer copy. With
+``placement="device"`` they live on the device with the parameters; with
+``placement="host"`` they live in CPU memory (pinned when a card is present,
+so copies to and from it are asynchronous DMA) and ``apply_updates`` runs on
+the CPU, taking the gradients to the host and returning the new parameters
+there (``optim.async_opt.HostAsyncRoundPipe`` uploads them).
 
 Trees are nested dicts and lists of tensors, as the port's parameters are.
 ``apply_updates`` updates the optimizer state's tensors IN PLACE (the
@@ -29,7 +32,7 @@ class OptConfig:
     weight_decay: float = 0.0
     grad_clip: float = 1.0
     master_dtype: Any = torch.float32
-    placement: str = "device"      # device | host (not ported yet)
+    placement: str = "device"      # device | host (pinned CPU memory)
 
 
 def tree_map(fn, tree, *rest):
@@ -63,10 +66,19 @@ def _layer_list(tree):
 
 
 def _check_placement(cfg: OptConfig) -> None:
-    if cfg.placement != "device":
-        raise NotImplementedError(
-            f"optimizer placement {cfg.placement!r} is not ported yet: the port keeps the "
-            "fp32 master and moments on the device (ROADMAP.md, Queue 1, item 10)")
+    if cfg.placement not in ("device", "host"):
+        raise ValueError(f"unknown optimizer placement {cfg.placement!r}; expected "
+                         "device|host")
+
+
+def _allocator(cfg: OptConfig):
+    """``new(shape, dtype, device)`` -> zeros where ``cfg.placement`` keeps the
+    optimizer state: on ``device``, or in CPU memory, pinned when a card is
+    present (so copies between it and the card are asynchronous DMA)."""
+    if cfg.placement == "device":
+        return lambda shape, dtype, device: torch.zeros(shape, dtype=dtype, device=device)
+    pin = torch.cuda.is_available()
+    return lambda shape, dtype, device: torch.zeros(shape, dtype=dtype, pin_memory=pin)
 
 
 # ---------------------------------------------------------------------------
@@ -109,20 +121,22 @@ def init_opt_state(params, cfg: OptConfig):
     """master (a real fp32 copy, never a view of an fp32 parameter) + first
     and second moments (+ step counter)."""
     _check_placement(cfg)
-    master = tree_map(lambda p: p.detach().to(cfg.master_dtype, copy=True), params)
-    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    new = _allocator(cfg)
+    master = tree_map(lambda p: new(p.shape, cfg.master_dtype, p.device).copy_(p.detach()),
+                      params)
+    step = new((), torch.int32, tree_leaves(params)[0].device)
     if cfg.mode == "adamw":
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        zeros = lambda p: new(p.shape, torch.float32, p.device)  # noqa: E731
         return {"master": master, "m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": step}
 
     def vrow(shape, device):
         shape = shape[:-1] if _factored(shape) else shape
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return new(shape, torch.float32, device)
 
     def vcol(shape, device):
         shape = shape[:-2] + shape[-1:] if _factored(shape) else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return new(shape, torch.float32, device)
 
     vr = tree_map(lambda p: vrow(p.shape, p.device), params)
     vc = tree_map(lambda p: vcol(p.shape, p.device), params)
@@ -132,8 +146,7 @@ def init_opt_state(params, cfg: OptConfig):
             return tree_map(lambda p, *_: fn((len(layers), *p.shape), p.device), *layers)
         vr["layers"], vc["layers"] = stacked(vrow), stacked(vcol)
     return {"master": master,
-            "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device),
-                          params),
+            "m": tree_map(lambda p: new(p.shape, torch.bfloat16, p.device), params),
             "vr": vr, "vc": vc, "step": step}
 
 
@@ -147,7 +160,7 @@ def _f32(x, device):
 
 
 @torch.no_grad()
-def apply_updates(opt_state, grads, cfg: OptConfig, param_like=None, grad_norm=None):
+def apply_updates(opt_state, grads, cfg: OptConfig, param_like=None, grad_norm=None, out=None):
     """Returns (new_params, opt_state, metrics); ``opt_state``'s tensors are
     updated in place and the same dict is returned with the step advanced.
 
@@ -155,8 +168,16 @@ def apply_updates(opt_state, grads, cfg: OptConfig, param_like=None, grad_norm=N
     overrides it), bias correction, decoupled weight decay. ``param_like``
     (a params tree) fixes each returned parameter's dtype, bf16 everywhere
     by default; a returned fp32 parameter is a copy of the master, never the
-    master itself."""
+    master itself. ``out`` (a params tree) receives the new parameters in
+    place, cast to its own dtypes, and is returned in place of fresh tensors.
+    With ``cfg.placement="host"`` the update runs where the state lives, on
+    the CPU: the gradients (and ``grad_norm``) are taken there first."""
     _check_placement(cfg)
+    home = opt_state["step"].device
+    if cfg.placement == "host":
+        grads = tree_map(lambda g: g.to(home), grads)
+        if grad_norm is not None:
+            grad_norm = grad_norm.to(home)
     step = opt_state["step"] + 1
     gnorm = global_grad_norm(grads) if grad_norm is None else grad_norm
     dev = step.device
@@ -226,7 +247,9 @@ def apply_updates(opt_state, grads, cfg: OptConfig, param_like=None, grad_norm=N
             tree_map(upd_layers, opt_state["vr"]["layers"], opt_state["vc"]["layers"],
                      *layers, *grads["layers"], *opt_state["m"]["layers"])
     opt_state["step"] = step
-    if param_like is not None:
+    if out is not None:
+        params = tree_map(lambda o, x: o.copy_(x), out, opt_state["master"])
+    elif param_like is not None:
         params = tree_map(lambda x, p: x.to(p.dtype, copy=True), opt_state["master"], param_like)
     else:
         params = tree_map(lambda x: x.to(torch.bfloat16), opt_state["master"])

@@ -298,8 +298,15 @@ def test_fp32_master_is_a_copy_and_host_placement_raises():
     assert state["master"]["w"].data_ptr() != p["w"].data_ptr()
     new, _, _ = apply_updates(state, {"w": torch.ones(3)}, OptConfig(), param_like=p)
     assert new["w"].data_ptr() != state["master"]["w"].data_ptr()
-    with pytest.raises(NotImplementedError, match="placement"):
-        init_opt_state(p, OptConfig(placement="host"))
+    # the host-resident optimizer copy: the same update, on the CPU
+    host = init_opt_state(p, OptConfig(placement="host"))
+    assert all(x.device.type == "cpu" for x in tree_leaves(host))
+    new_h, _, _ = apply_updates(host, {"w": torch.ones(3)}, OptConfig(placement="host"),
+                                param_like=p)
+    assert torch.equal(new_h["w"], new["w"]) and torch.equal(host["master"]["w"],
+                                                             state["master"]["w"])
+    with pytest.raises(ValueError, match="placement"):
+        init_opt_state(p, OptConfig(placement="tpu"))
 
 
 def test_trainable_masking_matches_reference():
@@ -451,7 +458,7 @@ def test_train_cli_on_cpu_and_refusals():
     lines = r.stdout.splitlines()
     assert lines[1].startswith("simulated bubble ratio (2 rounds, M=8): ")
     assert lines[2].startswith("step     0 loss ") and lines[3].startswith("done: 1 steps")
-    for extra, name in [(["--async-opt"], "--async-opt"), (["--ckpt-dir", "x"], "--ckpt-dir"),
+    for extra, name in [(["--elastic"], "--elastic"), (["--async-ckpt"], "--async-ckpt"),
                         (["--mesh", "2x4"], "data axis")]:
         r = _run_cli(*base, *extra, "--device", "cpu")
         assert r.returncode != 0 and name in r.stderr, (extra, r.stderr)
