@@ -124,15 +124,31 @@ Phases, in order; any failure exits non-zero at once:
      layers, fp32 (loss rtol 1e-4, worst relative weight error 5e-3,
      separation from staleness-0) and bf16 (2e-2 on the relative norm, and
      no farther from fp32 than 1.25x the bf16 oracle); ``HostAsyncRoundPipe``
-     with the optimizer on the CPU (peak device memory, pinned host bytes,
-     step, device and optimizer seconds, the optimizer's hidden share),
+     at 4 layers with the optimizer on the CPU (peak device memory, pinned
+     host bytes, step, device and optimizer seconds, the optimizer's hidden
+     share),
      within 5e-3 of the serial oracle and bit-identical to it at 2 layers on
      32-token sequences of tokens that occur once; and, at 2 layers on such
      sequences, runs resumed from ``--ckpt-dir`` bit-identical to
      uninterrupted ones (synchronous and chained), an off-boundary
      checkpoint refused under ``--async-opt``, and the checkpoint's bytes and
      save and load seconds;
- 11. print the card's line, the ``kernels`` JSON line, then the result line.
+ 11. the goodput supervisor (``runtime.Supervisor``) at full width, 7
+     layers: the reference's chaos scenario (``run_chaos``; fp32, 12 x
+     1024 tokens a step, asynchronous checkpoints after steps 3 and 7):
+     worker 2 reports 5x-slow steps from step 2, so the ring rotates to g0 =
+     3, and worker 1 dies at step 5, so the ring is re-planned for 3 workers
+     and resumes from the step-3 checkpoint re-padded to 9 pool rows; the
+     counts set to 0 just before and read just after, held against each
+     ring's plan; the events, the replayed step-4 loss (rtol 1e-4), the
+     goodput ledger and the final weights against an uninterrupted 4-worker
+     run (5e-3 worst relative); the launcher with ``--elastic --ckpt-dir``,
+     without and with ``--async-ckpt`` (bf16, 4 steps, a checkpoint every
+     2), launches against the plan and both ledgers (checkpoint seconds the
+     step paid, the writer's snapshot and background-write seconds); and a
+     one-round step at 28 layers traced at g0 = 0 and g0 = 1 in turns, with
+     the plan's launches at both;
+ 12. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -1793,7 +1809,7 @@ def _ring_launches(plan, passes, quant):
     forward once a layer in F and B slots (once in the fused slot's), the
     backward once a layer, the cross-entropy once; the dequant kernel runs
     once a promote of a slot with layers."""
-    n, layers, f = TRAIN_WORKERS, plan.n_layers, plan.fused.size
+    n, layers, f = plan.n_workers, plan.n_layers, plan.fused.size
     return {"flash_attention": passes * n * (2 * layers - f),
             "flash_attention_bwd": passes * n * layers,
             "fused_xent": passes * n,
@@ -2200,7 +2216,7 @@ def _lora_ring_vs_single(dtype_label):
 
 ASYNC_K, ASYNC_STEPS = 4, 8                  # --async-steps and --steps of the chained runs
 ASYNC_LR = "1e-4"
-HOST_LAYERS = 8                              # depth of the host-resident optimizer run
+HOST_LAYERS = 4                              # depth of the host-resident optimizer run
 HOST_STEPS = 3
 HOST_EVENT_S = 30.0                          # the protocol's wait for one event (consistency.py)
 
@@ -2631,11 +2647,12 @@ def phase_host_async():
     """``HostAsyncRoundPipe`` at full width: the ring's grads function on
     the card, the fp32 master and moments in pinned host memory and the
     optimizer on the CPU, ``HOST_LAYERS`` layers, 3 steps of 8 x 1024
-    tokens. 8 layers, not 28: the CPU optimizer takes over 30 s a step at
+    tokens. 4 layers, not 28: the CPU optimizer takes over 30 s a step at
     28 layers on the 8 host cores of one H100 machine, and the protocol's wait for one
-    event (``EventBook.wait``, kept as the reference has it) is 30 s; the
-    script prints the optimizer's seconds per parameter and what that makes
-    at 28 layers. Prints peak device memory, pinned host bytes, wall seconds a
+    event (``EventBook.wait``, kept as the reference has it) is 30 s; and
+    4, not 8, keeps the whole script near half its time limit. The script
+    prints the optimizer's seconds per parameter and what that makes at 28
+    layers. Prints peak device memory, pinned host bytes, wall seconds a
     step, the device thread's and the CPU optimizer's seconds a step and the
     share of the optimizer hidden under device work, and holds the final
     weights against the serial ``reference_staleness1`` with the same grads
@@ -2714,6 +2731,336 @@ def _host_async(layers, seq, *, unique):
           + json.dumps(report))
     del cell, want, final, params, batches
     torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the goodput supervisor
+# ---------------------------------------------------------------------------
+
+CHAOS_LAYERS, CHAOS_BATCH, CHAOS_STEPS = 7, 12, 8   # 12 divides over M = 4 and M' = 3
+CHAOS_KILL_AT, CHAOS_SLOW_FROM, CHAOS_WORKERS = 5, 2, 4
+CHAOS_SAVE_EVERY = 4                         # checkpoints after steps 3 and 7
+CHAOS_LR = 1e-4
+SUPERVISED_STEPS, SUPERVISED_CKPT_EVERY = 4, 2
+
+
+def run_chaos(cfg, *, seq, ckpt_dir, device, dtype, batch=CHAOS_BATCH, lr=CHAOS_LR,
+              save_every=CHAOS_SAVE_EVERY, counters=None, **step_kw):
+    """The reference's chaos harness (``tests/roundpipe_subprocess.py``
+    ``run_chaos``) on the port's train step, driven by the goodput supervisor
+    on the auto plan of ``cfg`` over 4 ring workers, asynchronous checkpoints
+    every ``save_every`` steps. Worker 2 reports 5x-slow step times from step
+    2 while the ring is unrotated, so the straggler streak re-scores the
+    rotations (``search_schedule`` under the measured ``device_scale``) and
+    rebuilds the step with the winner's ``g0``; worker 1 dies at step 5, so
+    the supervisor re-plans for the 3 survivors (``replan_for_survivors``,
+    M' = 3), restores the newest checkpoint through the elastic path
+    (``reshape_pooled_state``) and replays. Then the same steps run
+    uninterrupted on 4 workers from the same seeded state. ``step_kw`` go to
+    ``StepConfig`` (the chunk sizes).
+
+    Returns {"sup", "end", "state" (the chaos run's), "ref_state" (the
+    uninterrupted run's), "losses" (step -> the loss of each run of it),
+    "ring_steps" (n_workers -> steps run on that ring), "plans" (n_workers ->
+    plan), "launches" (``counters``' counts over the supervised run) and
+    "ring_launches" (n_workers -> those counts over that ring's steps)}."""
+    import torch
+    from repro_torch.core.dispatch import (build_roundpipe_train_step, init_roundpipe_state,
+                                           reshape_pooled_state)
+    from repro_torch.core.plan import plan_from_config, replan_for_survivors
+    from repro_torch.core.simulator import search_schedule
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adam import tree_map
+    from repro_torch.runtime import StragglerPolicy, Supervisor, WorkerFault
+
+    n0 = CHAOS_WORKERS
+    counters = counters or {}
+    plans = {n0: (plan_from_config(cfg, n0), n0)}          # ring size -> (plan, M)
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, batch, seed=11))
+    losses, killed, built = {}, [], {}
+    ring_steps = {}
+    ring_launches = {}
+
+    def step_cfg(n, g0):
+        plan, m = plans[n]
+        return StepConfig(strategy="roundpipe", partition=plan, n_microbatches=m,
+                          opt=OptConfig(lr=lr), g0=g0, **step_kw)
+
+    def fresh_state(n, dev=device, gen_device=device):
+        gen = torch.Generator(device=gen_device).manual_seed(0)
+        return init_roundpipe_state(gen, cfg, step_cfg(n, 0), n_workers=n, dtype=dtype,
+                                    device=dev)
+
+    def fetch(t):
+        return t, {k: torch.from_numpy(v).to(device) for k, v in data.batch(t).items()}
+
+    def make_runtime(*, n_workers, g0, use_async, replan=None):
+        del use_async
+        if replan is not None:
+            plans[n_workers] = (replan.plan, replan.n_microbatches)
+        plan, m = plans[n_workers]
+        if (n_workers, g0) not in built:
+            built[n_workers, g0] = build_roundpipe_train_step(
+                cfg, n_workers, step_cfg(n_workers, g0), batch, seq, plan=plan)[0]
+        step = built[n_workers, g0]
+        ticks = []
+
+        class Runtime:
+            like = fresh_state(n_workers, dev="meta", gen_device="cpu")
+            batch_for = staticmethod(fetch)
+
+            @staticmethod
+            def init_state():
+                return fresh_state(n_workers)
+
+            @staticmethod
+            def step_fn(state, step_batch):
+                t, b = step_batch
+                if t == CHAOS_KILL_AT and not killed:
+                    killed.append(t)
+                    raise WorkerFault(1, "chaos: injected device loss")
+                before = {k: fn.launches for k, fn in counters.items()}
+                state, metrics = step(state, b)
+                losses.setdefault(t, []).append(float(metrics["loss"]))
+                ring_steps[n_workers] = ring_steps.get(n_workers, 0) + 1
+                got = ring_launches.setdefault(n_workers, dict.fromkeys(counters, 0))
+                for k, fn in counters.items():
+                    got[k] += fn.launches - before[k]
+                return state, metrics
+
+            @staticmethod
+            def adapt_state(host_state):
+                return tree_map(lambda x: x.to(device),
+                                reshape_pooled_state(host_state, cfg, n_workers))
+
+            @staticmethod
+            def worker_times(metrics):
+                ticks.append(1)
+                if n_workers == n0 and g0 == 0 and len(ticks) > CHAOS_SLOW_FROM:
+                    return [1.0, 1.0, 5.0, 1.0]           # worker 2 is 5x slow
+                return [1.0] * n_workers
+
+            @staticmethod
+            def rescore(scales):
+                return search_schedule(plan, m, round_size=n_workers,
+                                       device_scale=list(scales)).choice.g0
+
+        return Runtime
+
+    sup = Supervisor(make_runtime, ckpt_dir, n_workers=n0,
+                     replan_fn=lambda n: replan_for_survivors(cfg, n, n_microbatches=n0,
+                                                              async_steps=1),
+                     straggler=StragglerPolicy(factor=2.0, min_samples=2),
+                     save_every=save_every, async_ckpt=True, use_async=False)
+    for fn in counters.values():
+        fn.launches = 0
+    state, end = sup.run(CHAOS_STEPS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ref_state, ref_step = fresh_state(n0), built[n0, 0]
+    for t in range(CHAOS_STEPS):
+        ref_state, _ = ref_step(ref_state, fetch(t)[1])
+    return {"sup": sup, "end": end, "state": state, "ref_state": ref_state, "losses": losses,
+            "ring_steps": ring_steps, "plans": {n: p for n, (p, _) in plans.items()},
+            "launches": launches, "ring_launches": ring_launches}
+
+
+def _real_params(state, n_layers):
+    """A train state's parameters with the pool cut to the model's layers."""
+    params = state["params"]
+    return dict(params, layers=params["layers"][:n_layers])
+
+
+def phase_chaos():
+    """The chaos scenario on the card (``run_chaos``): full-width qwen3-1.7b,
+    7 layers, fp32 weights and master (the kernels' fp32 paths), 12 x 1024
+    tokens a step, learning rate 1e-4, asynchronous checkpoints after steps 3
+    and 7 (~10.6 GB each). The counts set to 0 just before the supervised run
+    and read just after. Checks the reference harness's events (a straggler
+    on worker 2, one rotation to g0 = 3, a dead worker re-planned to N = 3
+    with M' = 3, resumed at step 4), the replayed step-4 loss within rtol 1e-4
+    of its first run, goodput in (0, 1) with replay and replan seconds,
+    launches against each ring's plan over its steps, and the final weights
+    within 5e-3 (worst relative, the harness's definition) of the
+    uninterrupted 4-worker run. Prints the goodput ledger and the writer's
+    snapshot and background-write seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CHAOS_LAYERS)
+    counters = _quant_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        out = run_chaos(cfg, seq=TRAIN_SEQ, ckpt_dir=root, device=DEVICE, dtype=torch.float32,
+                        counters=counters, kv_chunk=min(1024, TRAIN_SEQ),
+                        xent_chunk=min(256, TRAIN_SEQ))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sup, losses = out["sup"], out["losses"]
+    events = [(e.step, e.kind, e.detail) for e in sup.events]
+    print(f"chaos events: {events}")
+    check(out["end"] == CHAOS_STEPS and sup.n_workers == CHAOS_WORKERS - 1,
+          f"the chaos run ended at step {out['end']} on N={sup.n_workers}")
+    stragglers, rotations = sup.events_of("straggler"), sup.events_of("rotate")
+    check(bool(stragglers) and stragglers[0].detail["worker"] == 2,
+          f"no straggler on worker 2: {events}")
+    check(len(rotations) == 1 and rotations[0].detail["g0"] == 3
+          and rotations[0].detail["worker"] == 2, f"not one rotation to g0=3: {events}")
+    replans, restores = sup.events_of("replan"), sup.events_of("restore")
+    check(len(replans) == 1 and replans[0].detail["n_workers"] == 3
+          and replans[0].detail["n_microbatches"] == 3 and replans[0].detail["async_ok"],
+          f"not one re-plan to N=3, M'=3: {events}")
+    check(len(restores) == 1 and restores[0].detail["resumed_at"] == 4,
+          f"not one restore at step 4: {events}")
+    check(len(losses[4]) == 2, f"step 4 ran {len(losses[4])} times")
+    replay_rel = abs(losses[4][1] - losses[4][0]) / abs(losses[4][0])
+    check(replay_rel <= 1e-4, f"the replayed step-4 loss {losses[4]} differs by {replay_rel}")
+    rep = sup.meter.report()
+    check(0.0 < rep["goodput"] < 1.0 and rep["replay_s"] > 0 and rep["replan_s"] > 0,
+          f"goodput ledger {rep}")
+    for n, steps in out["ring_steps"].items():
+        want = _ring_launches(out["plans"][n], steps, False)
+        got = out["ring_launches"][n]
+        check(got == want, f"chaos launches on N={n} over {steps} steps {got} != the plan's "
+                           f"{want}")
+    param_err = _max_rel(_real_params(out["state"], CHAOS_LAYERS),
+                         _real_params(out["ref_state"], CHAOS_LAYERS))
+    check(param_err < 5e-3, f"chaos final weights differ from the uninterrupted run by "
+                            f"{param_err}")
+    report = {"events": [(s, k) for s, k, _ in events], "ledger": rep,
+              "checkpoints": sup.ckpt_io, "launches": out["launches"],
+              "ring_steps": out["ring_steps"], "losses": losses,
+              "replay_loss_rel": replay_rel, "final_param_err": param_err,
+              "peak_memory_gb": peak / 1e9, "wall_s": wall}
+    del out
+    torch.cuda.empty_cache()
+    print("chaos, full width, 7 layers, fp32: " + json.dumps(report))
+    return report
+
+
+def _seven_layer_arch():
+    """qwen3-1.7b at full width and the chaos depth, registered for the launcher."""
+    from repro_torch.models.config import REGISTRY, get_config, register
+    name = f"{ARCH}-{CHAOS_LAYERS}l"
+    if name not in REGISTRY:
+        register(dataclasses.replace(get_config(ARCH), name=name, n_layers=CHAOS_LAYERS))
+    return name
+
+
+def phase_supervised_launcher():
+    """The launcher under the supervisor, ``--elastic --ckpt-dir``, without
+    and with ``--async-ckpt``: full width, 7 layers, bf16, 8 x 1024 tokens,
+    4 steps, a checkpoint every 2 (after steps 1 and 3, ~9.3 GB each). Each
+    run with the counts set to 0 just before and read just after, checked
+    against the plan; no supervisor event, finite losses, the newest
+    checkpoint at step 3. Prints both ledgers: the checkpoint seconds the
+    step paid (``ckpt_s``), the writer's snapshot and background-write
+    seconds, and the checkpoint's bytes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+
+    arch = _seven_layer_arch()
+    counters = _quant_counters()
+    report = {}
+    for mode in ("sync", "async"):
+        root = tempfile.mkdtemp()
+        argv = ["--arch", arch, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+                "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(SUPERVISED_STEPS), "--ckpt-every", str(SUPERVISED_CKPT_EVERY),
+                "--lr", ASYNC_LR, "--elastic", "--ckpt-dir", root, "--log-every", "1",
+                "--device", DEVICE] + (["--async-ckpt"] if mode == "async" else [])
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            out = train.main(argv)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            newest = latest_step(root)
+            ckpt_bytes = sum(f.stat().st_size for f in Path(root, f"step_{newest:010d}").iterdir())
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        want = _ring_launches(out["plan"], SUPERVISED_STEPS, False)
+        check(launches == want, f"supervised launches ({mode}) {launches} != the plan's {want}")
+        check(out["steps"] == SUPERVISED_STEPS and not out["events"],
+              f"the supervised run ({mode}) ran {out['steps']} steps, events {out['events']}")
+        check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
+        check(newest == SUPERVISED_STEPS - 1, f"the newest checkpoint is step {newest}")
+        n_ckpt = SUPERVISED_STEPS // SUPERVISED_CKPT_EVERY
+        report[mode] = {"ledger": out["goodput"],
+                        "ckpt_s_per_checkpoint": out["goodput"]["ckpt_s"] / n_ckpt,
+                        "writer": out["supervisor"].ckpt_io, "checkpoint_gb": ckpt_bytes / 1e9,
+                        "step_ms": [x * 1e3 for x in out["step_s"]], "launches": launches}
+        del out
+    print("supervised launcher, full width, 7 layers, bf16: " + json.dumps(report))
+    return report
+
+
+def phase_rotation_trace():
+    """A one-round step of the launcher's configuration (full width, 28
+    layers, bf16, 8 x 1024 tokens) at g0 = 0 and at g0 = 1 on one state,
+    traced in turns (0, 1, 1, 0) after a warm step of each; the launches of
+    each traced step against the plan's. One card runs all N logical workers,
+    so the rotation moves no work: the device times should agree within the
+    run-to-run spread."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_train_step, init_roundpipe_state
+    from repro_torch.core.plan import plan_from_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.config import get_config
+    from repro_torch.optim import OptConfig
+
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    plan = plan_from_config(cfg, TRAIN_WORKERS)
+    steps = {}
+    for g0 in (0, 1):
+        scfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                          xent_chunk=min(256, TRAIN_SEQ), partition=plan,
+                          opt=OptConfig(lr=1e-5), g0=g0)
+        steps[g0] = build_roundpipe_train_step(cfg, TRAIN_WORKERS, scfg, TRAIN_BATCH,
+                                               TRAIN_SEQ, plan=plan)[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    box = {"s": init_roundpipe_state(gen, cfg, scfg, n_workers=TRAIN_WORKERS, device=DEVICE)}
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=7))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    counters = _quant_counters()
+    want = _ring_launches(plan, 1, False)
+    traces = {0: [], 1: []}
+
+    def one(g0):
+        box["s"], m = steps[g0](box["s"], batch)
+        float(m["loss"])
+
+    one(0)
+    one(1)                                       # a warm step of each
+    for g0 in (0, 1, 1, 0):
+        for fn in counters.values():
+            fn.launches = 0
+        traces[g0].append(_trace(lambda: one(g0), 1))
+        launches = {name: fn.launches for name, fn in counters.items()}
+        check(launches == want, f"a step at g0={g0} launched {launches}, the plan {want}")
+    del box
+    torch.cuda.empty_cache()
+    report = {f"g0={g0}": [{k: t[k] for k in ("wall_ms", "device_busy_ms", "busy_share",
+                                                "device_events", "slot_kinds_ms")}
+                           if isinstance(t, dict) else t for t in ts]
+              for g0, ts in traces.items()}
+    print("rotation, full width, one round, traced in turns (0, 1, 1, 0): " + json.dumps(report))
     return report
 
 
@@ -2850,9 +3197,13 @@ def main() -> int:
     chained_vs_oracle = phase_async_vs_staleness1()
     host_async = phase_host_async()
     resume = phase_resume()
+    chaos = phase_chaos()
+    supervised = phase_supervised_launcher()
+    rotation = phase_rotation_trace()
     for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
-    for q in [*quant.values(), *lora.values(), *chained.values()]:
+    for q in [*quant.values(), *lora.values(), *chained.values(), chaos,
+              *supervised.values()]:
         for name, n in q["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for row in rows:
@@ -2883,6 +3234,9 @@ def main() -> int:
          "resume": resume,
          "dense_sync_one_round": {"warm_step_ms_median": dense_warm[len(dense_warm) // 2] * 1e3,
                                   "peak_memory_gb": peak / 1e9, "traced_step": traced}}))
+    print("supervisor timings " + json.dumps(
+        {"chaos": chaos, "supervised_launcher": supervised, "rotation_traced_step": rotation,
+         "dense_sync_one_round": {"traced_step": traced}}))
     print("phase seconds " + json.dumps(seconds))
     print(smi)
     print(json.dumps({"kernels": rows}))

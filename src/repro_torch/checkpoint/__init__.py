@@ -1,2 +1,2 @@
-from .store import (CheckpointManager, latest_step, load_checkpoint,  # noqa: F401
-                    save_checkpoint)
+from .store import (AsyncCheckpointWriter, CheckpointManager, latest_step,  # noqa: F401
+                    load_checkpoint, save_checkpoint)

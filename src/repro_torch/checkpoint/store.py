@@ -2,8 +2,8 @@
 reference's on-disk form.
 
 The PyTorch counterpart of ``repro/checkpoint/store.py`` (``save_checkpoint``,
-``latest_step``, ``load_checkpoint``, ``CheckpointManager``), and the two
-packages read each other's checkpoints:
+``latest_step``, ``load_checkpoint``, ``AsyncCheckpointWriter``,
+``CheckpointManager``), and the two packages read each other's checkpoints:
 
   * one ``.npy`` file a leaf and a ``manifest.json`` (each leaf's path, file,
     shape and dtype, and the step), written into a ``.tmp-<step>``
@@ -23,16 +23,27 @@ packages read each other's checkpoints:
 
 A pooled leaf is written and read one layer row at a time, so no stacked
 copy of a pool is ever made on the device or the host.
+
+Elasticity: ``load_checkpoint(..., elastic=True)`` loads every pooled leaf
+(a list of layer rows, or a stacked tensor on a pool's path) at the row count
+the file holds, so a state written under N workers loads into the structure
+of an N'-worker state, and ``core.dispatch.reshape_pooled_state`` re-pads it;
+every other load checks each leaf's whole shape.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.optim.adam import tree_map
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64, torch.float16: np.float16,
        torch.bfloat16: np.uint16, torch.int64: np.int64, torch.int32: np.int32,
@@ -65,7 +76,8 @@ def _flatten_rows(rows: list, prefix: str) -> dict:
 
 
 def _rebuild(like, got: dict, prefix: str = ""):
-    """``like``'s structure (its own key order) holding the leaves of ``got``."""
+    """``like``'s structure (its own key order) holding the leaves of ``got``;
+    a list gets as many rows as ``got`` holds for it."""
     if isinstance(like, dict):
         return {k: _rebuild(v, got, f"{prefix}[{k!r}]") for k, v in like.items()}
     if isinstance(like, list):
@@ -73,8 +85,20 @@ def _rebuild(like, got: dict, prefix: str = ""):
             if isinstance(node, dict):
                 return {k: row(v, f"{pre}[{k!r}]", i) for k, v in node.items()}
             return got[pre][i]
-        return [row(like[0], prefix, i) for i in range(len(like))]
+
+        def first(node, pre):
+            if isinstance(node, dict):
+                k = next(iter(node))
+                return first(node[k], f"{pre}[{k!r}]")
+            return pre
+        return [row(like[0], prefix, i) for i in range(len(got[first(like[0], prefix)]))]
     return got[prefix]
+
+
+# the keys of the pools (lists of layer rows) and of their optimizer mirrors;
+# the rows a worker count pads them to are the only part of a train state that
+# depends on it
+POOLED_KEYS = ("layers", "lora", "grad_residual")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -152,11 +176,16 @@ def latest_step(directory) -> int | None:
     return max(steps) if steps else None
 
 
-def load_checkpoint(directory, step: int, like, *, device=None):
+def load_checkpoint(directory, step: int, like, *, device=None, elastic: bool = False):
     """Restore into the structure of ``like`` (a train state of tensors on
     any device, the ``meta`` device included), each leaf in the manifest's
     dtype, on ``device`` or else on the device of ``like``'s leaf. Returns
-    ``(state, step)``."""
+    ``(state, step)``.
+
+    Each leaf's shape must be ``like``'s, except that with ``elastic`` a
+    pooled leaf (on a ``layers``, ``lora`` or ``grad_residual`` path) loads
+    at the row count the file holds, axis 0 of the manifest's shape: a list
+    gets that many rows, a stacked tensor that leading dimension."""
     d = Path(directory) / f"step_{step:010d}"
     manifest = json.loads((d / "manifest.json").read_text())
     want = _flatten(like)
@@ -171,16 +200,110 @@ def load_checkpoint(directory, step: int, like, *, device=None):
         rows = leaf if isinstance(leaf, list) else None
         first = rows[0] if rows else leaf
         shape = (len(rows), *first.shape) if rows else tuple(first.shape)
+        if (elastic and shape and arr.ndim == len(shape)
+                and any(f"[{k!r}]" in path for k in POOLED_KEYS)):
+            shape = (arr.shape[0], *shape[1:])      # the pool's depth as written
         if tuple(arr.shape) != shape:
             raise ValueError(f"checkpoint leaf {path} has shape {tuple(arr.shape)}, the state "
                              f"{shape}")
         dev = device if device is not None else first.device
         if rows:
-            got[path] = [_from_numpy(arr[r], entry["dtype"], dev) for r in range(len(rows))]
+            got[path] = [_from_numpy(arr[r], entry["dtype"], dev) for r in range(shape[0])]
         else:
             got[path] = _from_numpy(arr, entry["dtype"], dev)
         del arr
     return _rebuild(like, got), manifest["step"]
+
+
+def _snapshot(leaf: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``leaf`` that owns its buffer: a device tensor is copied
+    to the host, and a host one cloned (``.cpu()`` would return it as it is,
+    and the next step updates it in place)."""
+    leaf = leaf.detach()
+    return leaf.to("cpu") if leaf.device.type != "cpu" else leaf.clone()
+
+
+class AsyncCheckpointWriter:
+    """Move checkpoint writes off the training critical path.
+
+    ``submit(step, state)`` blocks the caller only for the device -> host
+    snapshot, which must be complete before the next step updates the state
+    in place (``optim.adam.apply_updates``). Serialization and the atomic
+    rename then happen on one background thread, so training overlaps the
+    slow disk half of the write.
+
+    Crash safety is inherited: the writer calls the same manifest-last
+    :func:`save_checkpoint`, so a crash mid-write leaves at worst an
+    invisible ``.tmp-*`` directory and the previous checkpoint stays the
+    newest restorable one. Writes run on one thread in submission order, so
+    retention never races. A writer-thread exception is re-raised on the next
+    ``submit()`` or ``wait()``. ``save_fn`` is injectable for fault-injection
+    tests. ``snapshot_s`` sums the caller's blocked seconds and ``write_s``
+    the background thread's."""
+
+    def __init__(self, directory, *, keep: int = 3, save_fn=None):
+        self.directory = Path(directory)
+        self.keep = keep
+        self.save_fn = save_fn or save_checkpoint
+        self.snapshot_s = 0.0
+        self.write_s = 0.0
+        self.submitted = 0
+        self.completed = 0
+        self._queue: queue.Queue = queue.Queue()
+        self._error: BaseException | None = None
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _drain(self):
+        while True:
+            item = self._queue.get()
+            try:
+                if item is None:
+                    return
+                t0 = time.monotonic()
+                self.save_fn(self.directory, item[0], item[1], keep=self.keep)
+                self.write_s += time.monotonic() - t0
+                self.completed += 1
+            except BaseException as e:      # re-raised on the next submit or wait
+                self._error = e
+            finally:
+                item = None                 # the snapshot's host memory goes now
+                self._queue.task_done()
+
+    def _check_error(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def submit(self, step: int, state) -> float:
+        """Snapshot ``state`` to the host and enqueue its write. Returns the
+        seconds the caller was blocked (the snapshot: the only part charged
+        against goodput)."""
+        self._check_error()
+        t0 = time.monotonic()
+        snapshot = tree_map(_snapshot, state)
+        dt = time.monotonic() - t0
+        self.snapshot_s += dt
+        self.submitted += 1
+        self._queue.put((step, snapshot))
+        return dt
+
+    def wait(self):
+        """Block until every submitted write has landed (or raised)."""
+        self._queue.join()
+        self._check_error()
+
+    def close(self):
+        self._queue.join()
+        self._queue.put(None)
+        self._thread.join()
+        self._check_error()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class CheckpointManager:

@@ -4,14 +4,15 @@ its builders and the train state.
 The PyTorch counterpart of the sync path of ``repro/core/dispatch.py``
 (``roundpipe_forward_backward``, ``build_roundpipe_grads_fn``,
 ``build_roundpipe_train_step``, ``init_roundpipe_state``, ``resolve_plan``,
-``pool_rows``, ``pad_pool``).
+``pool_rows``, ``pad_pool``, ``reshape_pooled_state``).
 
 N logical workers run in one process on one device. Each owns its
 micro-batch group of every round, its activation, a stash of the L+1 layer
 boundaries, its carried activation gradient and its shard of the pool
 (``plan.pool_layout``). The step runs R rounds stitched back to back through
-the generated ``TickProgram`` (``plan.tick_program(R)``): at tick t, worker w
-runs stitched slot t - w, which is slot (t - w) mod S of round (t - w) div S:
+the generated ``TickProgram`` (``plan.tick_program(R)``): at tick t, logical
+worker w runs stitched slot t - w, which is slot (t - w) mod S of round (t -
+w) div S:
 
   * F slots fold their block over the worker's activation under
     ``torch.no_grad()``, stashing each layer's input;
@@ -22,13 +23,17 @@ runs stitched slot t - w, which is slot (t - w) mod S of round (t - w) div S:
     and take ``torch.autograd.grad`` with the carried gradient (the analogue
     of ``jax.vjp``).
 
-A gradient buffer travels with each block; worker 0 adds first, then 1, up
-to N-1, and the tail deposits the reduced rows to their owners, so the sums
-run in the reference's order. Each round's deposits sum into the same rows,
-and the replicated gradients accumulate across rounds, before the one
-optimizer step. Embedding gradients are scattered with ``index_add_``; a
-tied head adds its gradient, transposed, into ``embed``. Returned grads hold
-exactly ``n_layers`` layers: there is no pad-then-slice.
+A gradient buffer travels with each block; logical worker 0 adds first, then
+1, up to N-1, and the tail deposits the reduced rows to their owners, so the
+sums run in the reference's order. The program's ``g0`` rotates the ring
+(``core.ring``): logical w is physical ``(w + g0) mod N``, which holds the
+ring entries, the per-worker state and its own micro-batch group, and names
+the endpoints of every transport call; ``g0 = 0`` is the unrotated ring.
+Each round's deposits sum into the same rows, and the replicated gradients
+accumulate across rounds, before the one optimizer step. Embedding gradients
+are scattered with ``index_add_``; a tied head adds its gradient,
+transposed, into ``embed``. Returned grads hold exactly ``n_layers`` layers:
+there is no pad-then-slice.
 
 Injection is whole-block (each tick gathers its slot's rows) or, with a
 ``PrefetchProgram``, the double-buffered standby: slot j+1's chunks stream
@@ -51,7 +56,9 @@ the embedding, the final norm or the head is formed, and the returned grads
 are exactly ``{"lora": ...}``. The quantized codec still quantizes the base
 pool once a step; the adapters stay in their own precision.
 
-Not ported yet, and refused by name: ``g0 != 0``.
+``reshape_pooled_state`` re-pads a train state written under one worker
+count to another's pool depth: the elastic restore of the goodput supervisor
+(``runtime.supervisor``), after a worker dies.
 
 The chained staleness-1 program (``roundpipe_async_forward_backward``,
 ``build_roundpipe_async_train_step``; paper §4.3, DESIGN.md §6) runs I
@@ -73,6 +80,7 @@ import functools
 import torch
 from torch.profiler import record_function
 
+from repro_torch.checkpoint.store import POOLED_KEYS
 from repro_torch.core.partition import POOL_DTYPE_BITS
 from repro_torch.core.ring import (OneCardTransport, RingMachine, StepAccum, block_row,
                                    gbuf_add, zeros_block)
@@ -85,13 +93,7 @@ from repro_torch.optim.adam import (apply_updates, init_opt_state, merge_trainab
 _LATER = "is not ported yet (ROADMAP.md, Queue 1: {})"
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} " + _LATER.format(item))
-
-
-def _check_options(*, pool_dtype="none", grad_compress="none", g0=0):
-    if g0 != 0:
-        _refuse(f"ring rotation g0={g0}", "item 11, the supervisor")
+def _check_options(*, pool_dtype="none", grad_compress="none"):
     if pool_dtype not in ("none", *POOL_DTYPE_BITS):
         raise ValueError(f"unknown pool_dtype {pool_dtype!r}; expected "
                          f"none|{'|'.join(POOL_DTYPE_BITS)}")
@@ -102,8 +104,8 @@ def _check_options(*, pool_dtype="none", grad_compress="none", g0=0):
 def _check_program(program, plan, rounds: int, iterations: int):
     """Validate an externally supplied tick program against the plan before
     a driver unrolls it: the shape fields must match and the injection order
-    must be exactly the plan's round-stitched tick_table. A rotated program
-    (``g0 != 0``) is refused by name."""
+    must be exactly the plan's round-stitched tick_table, and its rotation
+    stamp ``g0`` one of the plan's workers."""
     if (program.n_workers != plan.n_workers or program.n_slots != plan.n_slots
             or program.rounds != rounds or program.iterations != iterations):
         raise ValueError(
@@ -113,8 +115,13 @@ def _check_program(program, plan, rounds: int, iterations: int):
     if program.entries != plan.tick_table(rounds, iterations):
         raise ValueError("tick program injection order does not match the plan's "
                          "round-stitched tick_table")
-    _check_options(g0=program.g0)
+    _check_g0(program.g0, plan.n_workers)
     return program
+
+
+def _check_g0(g0: int, n_workers: int) -> None:
+    if not 0 <= g0 < n_workers:
+        raise ValueError(f"ring rotation g0={g0} out of range for {n_workers} workers")
 
 
 def _leaf(tree):
@@ -200,7 +207,7 @@ class Standby:
 class _Step:
     """What the work of one optimizer step reads and sums: the shards of the
     parameter version it injects, its replicated weights and embeddings
-    (of that version), its batch cut by worker and round, and its
+    (of that version), its batch cut by physical worker and round, and its
     accumulators, made at first use (on deep plans a step's first fused
     slot comes after the previous step's deposit-complete tick, so only one
     step's accumulators ever live)."""
@@ -247,7 +254,8 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
            lora, pool_dtype: str, grad_compress: str, transport):
     """Run ``program`` (I steps of R rounds each) over the slot ring.
 
-    ``batches[k]`` is step k's batch, round-major ``(R, B/R, ...)``. Step T
+    ``batches[k]`` is step k's batch, round-major ``(R, B/R, ...)``; the
+    program's ``g0`` rotates the ring (module docstring). Step T
     reads version ``v_{max(0, T-1)}`` (``v_0 = params``). At step k's
     deposit-complete tick ``D_k`` the driver calls ``update(k, grads, loss,
     tokens, retired)``: ``grads`` are step k's (exactly ``n_layers`` pool
@@ -267,7 +275,7 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
     rm = RingMachine(cfg=cfg, plan=plan, n_workers=n, l_pad=l_pad,
                      transport=transport or OneCardTransport(n), xent_chunk=xent_chunk,
                      pool_template=params["layers"][0], prefetch_program=prefetch_program,
-                     pool_dtype=pool_dtype, lora=lora)
+                     pool_dtype=pool_dtype, lora=lora, g0=program.g0)
     A = StepAccum
     dev = params["embed"].device
     versions = {0: params}
@@ -292,7 +300,7 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
                                        r_total=r_total, frozen=frozen)
         return st
 
-    # ---- per-worker state ----------------------------------------------------
+    # ---- per-worker state, indexed by physical worker --------------------------
     act = [None] * n
     stash = [[None] * (l_total + 1) for _ in range(n)]
     grad_carry = [None] * n
@@ -415,9 +423,10 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
         standby.upload(0, 0)
 
     # The driver consumes the generated schedule IR: tick t injects slot
-    # entry[1] of global round entry[0] at worker 0; worker w holds stitched
-    # slot t - w. The N-1 drain ticks are paid once per call, not once per
-    # round or step.
+    # entry[1] of global round entry[0] at logical worker 0 (physical inj);
+    # logical worker w holds stitched slot t - w. The N-1 drain ticks are paid
+    # once per call, not once per round or step.
+    inj, tail = rm.inj, rm.tail
     for rec in program.records:
         t = rec.t
         ring = rm.shift(ring)
@@ -429,7 +438,7 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
             spec = slots[rec.entry[1]]
             st = step_of(rec.inject_step)
             if standby is not None:
-                ring[0] = standby.promote(spec) if spec.size else []
+                ring[inj] = standby.promote(spec) if spec.size else []
                 # double-buffer swap: the next tick's slot streams into the
                 # other standby while this tick computes, as soon as the
                 # version it reads exists (else after this tick's update)
@@ -438,13 +447,13 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
                     standby.upload(*upload)
                     upload = None
             else:
-                ring[0] = _assemble(spec, st)
+                ring[inj] = _assemble(spec, st)
             if frozen:
                 # adapters are ~100-1000x smaller than the block: gathered
                 # whole at injection, even under prefetch
-                a_ring[0] = rm.assemble_block(spec, st.a_pool)
-            gbuf[0] = None if spec.kind == "F" else zeros_block(
-                a_ring[0] if frozen else ring[0], ring_grad_dtype)
+                a_ring[inj] = rm.assemble_block(spec, st.a_pool)
+            gbuf[inj] = None if spec.kind == "F" else zeros_block(
+                a_ring[inj] if frozen else ring[inj], ring_grad_dtype)
         for w in range(n):
             fb = t - w
             if not 0 <= fb < live:
@@ -452,35 +461,36 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
             g_round, slot_i = divmod(fb, s_total)
             k, ri = divmod(g_round, r_total)
             st = open_steps[k]
-            spec, blk, ablk = slots[slot_i], ring[w], a_ring[w]
+            p = rm.phys(w)
+            spec, blk, ablk = slots[slot_i], ring[p], a_ring[p]
             # a named range per slot kind: a profiler trace reads each kind's
             # device time from it
             with record_function(f"roundpipe.{spec.kind}"):
                 if slot_i < sf:
-                    do_plain(w, spec, blk, ablk, slot_i, ri, st)
+                    do_plain(p, spec, blk, ablk, slot_i, ri, st)
                 elif frozen:
                     if slot_i == sf:
-                        do_fused_frozen(w, blk, ablk, slot_i, ri, st)
+                        do_fused_frozen(p, blk, ablk, slot_i, ri, st)
                     else:
-                        do_bwd_frozen(w, spec, blk, ablk)
+                        do_bwd_frozen(p, spec, blk, ablk)
                 elif slot_i == sf:
-                    do_fused(w, spec, blk, slot_i, ri, st)
+                    do_fused(p, spec, blk, slot_i, ri, st)
                 else:
-                    do_bwd(w, spec, blk, ri, st)
-        # the slot exiting at worker N-1 deposits its reduced rows; each
-        # round's wave sums into the same rows
+                    do_bwd(p, spec, blk, ri, st)
+        # the slot exiting at logical worker N-1 deposits its reduced rows;
+        # each round's wave sums into the same rows
         if rec.deposit is not None:
             for k, lid in enumerate(slots[rec.deposit].layers):
                 if compress:
-                    rm.deposit_ef(grad_shards, res_shards, block_row(gbuf[n - 1], k), lid)
+                    rm.deposit_ef(grad_shards, res_shards, block_row(gbuf[tail], k), lid)
                 else:
-                    rm.deposit_plain(grad_shards, block_row(gbuf[n - 1], k), lid)
+                    rm.deposit_plain(grad_shards, block_row(gbuf[tail], k), lid)
         # D_k: step k's gradients have all reached their owners
         if rec.update_step is not None:
             k = rec.update_step
             grads, loss, tokens = drained(k)
             grad_shards = [[None] * rm.per for _ in range(n)]
-            ring[n - 1] = gbuf[n - 1] = a_ring[n - 1] = None    # step k's last block
+            ring[tail] = gbuf[tail] = a_ring[tail] = None    # step k's last block
             # v_{k-1}'s last reader, step k, is done: its buffers take v_{k+1}
             retired = versions.pop(k - 1) if k >= 1 else None
             if not frozen:
@@ -524,9 +534,10 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     ``lora`` (a ``LoraConfig``) runs the frozen-base mode on
     ``params["lora"]`` and returns ``{"lora": grads}``. ``tick_program``
     supplies the generated schedule IR (validated against the plan);
-    ``transport`` moves payloads between the logical workers
-    (``OneCardTransport`` by default)."""
-    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
+    ``transport`` moves payloads between the workers (``OneCardTransport`` by
+    default). ``g0`` rotates the ring (module docstring); a supplied
+    ``tick_program``'s own ``g0`` stamp governs."""
+    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress)
     if grad_compress != "none" and grad_residual is None:
         raise ValueError("grad_compress needs the grad_residual tree (init_roundpipe_state "
                          "puts it beside the optimizer state)")
@@ -534,7 +545,7 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
         T.embed_inputs(params, batch, cfg)      # raises: the frontend is a later slice
     r_total = rounds or 1
     program = (_check_program(tick_program, plan, r_total, 1) if tick_program is not None
-               else plan.tick_program(r_total))
+               else plan.tick_program(r_total, g0=g0))
     del kv_chunk                        # the flash kernel tiles by itself
     if rounds is None:
         batch = {k: v[None] for k, v in batch.items()}
@@ -581,12 +592,14 @@ def roundpipe_async_forward_backward(params, opt_state, batches, *, cfg: ModelCo
     step reads it (one pass per version read; a frozen base is quantized
     once). ``grad_compress="int8"`` runs the deposits through the
     error-feedback codec with the residual ``opt_state["grad_residual"]``
-    threading across the chained steps."""
-    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress, g0=g0)
+    threading across the chained steps. ``g0`` rotates the ring as in the
+    synchronous driver (a supplied ``tick_program``'s stamp governs); the
+    staleness-1 protocol is logical and so rotation-invariant."""
+    _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress)
     if "embeds" in batches:
         T.embed_inputs(params, batches, cfg)    # raises: the frontend is a later slice
     program = (_check_program(tick_program, plan, rounds, steps) if tick_program is not None
-               else plan.tick_program(rounds, steps))
+               else plan.tick_program(rounds, steps, g0=g0))
     del kv_chunk
     frozen = lora is not None
     opt = dict(opt_state)
@@ -692,8 +705,8 @@ def _ring_fn(cfg, n_workers, plan, rounds, **kw):
     """``f(params, batch, residual)`` running ``roundpipe_forward_backward``
     for ``plan`` (validated, with its prefetch program) over batches whose
     leaves are round-major when ``rounds`` is set."""
-    _check_options(pool_dtype=kw["pool_dtype"], grad_compress=kw["grad_compress"],
-                   g0=kw.pop("g0", 0))
+    _check_options(pool_dtype=kw["pool_dtype"], grad_compress=kw["grad_compress"])
+    _check_g0(kw.get("g0", 0), n_workers)
     plan = _plan_for(cfg, n_workers, plan)
     if kw["prefetch_program"] is not None:
         kw["prefetch_program"].validate(plan)
@@ -715,7 +728,8 @@ def build_roundpipe_grads_fn(cfg: ModelConfig, n_workers: int, plan, *, xent_chu
     all M micro-batches. ``prefetch_program`` selects the chunked standby
     injection, ``pool_dtype`` the quantized pool; ``lora`` the frozen-base
     mode (params carry ``"lora"``, padded or not; the grads are ``{"lora":
-    ...}`` with ``n_layers`` rows). With ``grad_compress="int8"``
+    ...}`` with ``n_layers`` rows). ``g0`` rotates the ring's endpoints
+    (the supervisor's straggler rotation). With ``grad_compress="int8"``
     the call is ``f(params, batch, residual) -> (grads, loss, tokens,
     residual)``, the residual updated in place."""
     rounds = None if n_microbatches is None else plan.rounds_for(n_microbatches)
@@ -738,9 +752,9 @@ def _select_schedule(step_cfg, plan, rounds: int, iterations: int):
     ``"hand"`` (default) returns None: the driver generates the canonical
     ``plan.tick_program``. ``"searched"`` runs
     ``core.simulator.search_schedule`` over the schedule family (under
-    ``step_cfg.device_scale``) and returns the certified winner's program.
-    The ring does not rotate yet, so a winner with a rotation (``g0 != 0``)
-    is refused by name; it never runs as g0 = 0."""
+    ``step_cfg.device_scale``) and returns the certified winner's program,
+    whose ``g0`` stamp (a rotation of the ring, where it wins) governs the
+    run."""
     sel = getattr(step_cfg, "schedule", "hand")
     if sel == "hand":
         return None
@@ -748,9 +762,6 @@ def _select_schedule(step_cfg, plan, rounds: int, iterations: int):
         from repro_torch.core.simulator import search_schedule
         result = search_schedule(plan, rounds * plan.n_workers, iterations=iterations,
                                  device_scale=getattr(step_cfg, "device_scale", None))
-        if result.program.g0 != 0:
-            _refuse(f"the searched schedule {result.choice.name!r} rotates the ring "
-                    f"(g0={result.program.g0}), which", "item 11, the supervisor")
         return result.program
     raise ValueError(f"unknown schedule selector {sel!r}: expected 'hand' or 'searched'")
 
@@ -772,7 +783,7 @@ def build_roundpipe_train_step(cfg: ModelConfig, n_workers: int, step_cfg, globa
     only: the optimizer updates ``trainable_leaves(params, param_mask(params))``
     and the frozen base passes through untouched (the same tensors).
     ``step_cfg.schedule="searched"`` runs the searched schedule's program
-    (``_select_schedule``).
+    (``_select_schedule``); otherwise ``step_cfg.g0`` rotates the ring.
 
     The train state keeps the pool padded at rest (``init_roundpipe_state``).
     Returns ``(step, plan)``; ``step(state, batch) -> (state, metrics)``
@@ -901,7 +912,7 @@ def build_roundpipe_async_train_step(cfg: ModelConfig, n_workers: int, step_cfg,
     if ticks is None:
         ticks = plan.tick_program(rounds, steps_per_call, g0=getattr(step_cfg, "g0", 0))
     _check_options(pool_dtype=getattr(step_cfg, "pool_dtype", "none"),
-                   grad_compress=getattr(step_cfg, "grad_compress", "none"), g0=ticks.g0)
+                   grad_compress=getattr(step_cfg, "grad_compress", "none"))
     # certify that the chained tick order satisfies the five §4.3 constraints
     # and that the program's annotations match the protocol replay
     verify_async_ticks(plan, rounds, steps_per_call, program=ticks)
@@ -957,3 +968,60 @@ def init_roundpipe_state(generator, cfg: ModelConfig, step_cfg, n_workers: int |
                                                                device=a.device), p)
                                 for p in pool]
     return {"params": params, "opt": opt}
+
+
+def _pool_depth(node, pooled: bool = False):
+    """The row count of the first pooled leaf in ``jax.tree_util`` order (dict
+    keys sorted): a pooled list's length, or a stacked pooled tensor's leading
+    dimension. None when the tree holds no pooled leaf."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            depth = _pool_depth(node[k], pooled or k in POOLED_KEYS)
+            if depth is not None:
+                return depth
+        return None
+    if isinstance(node, list):
+        return len(node) if pooled and node else None
+    return node.shape[0] if pooled and node.ndim >= 1 else None
+
+
+def reshape_pooled_state(state, cfg: ModelConfig, n_new: int):
+    """Elastic-restore transform: re-pad every pooled leaf of ``state`` (a
+    train state written under some earlier worker count) to the
+    ``pool_rows(cfg, n_new)`` layout.
+
+    Only the padding rows depend on the worker count: the first
+    ``cfg.n_layers`` rows are the model and the padding rows are zero (never
+    part of a slot, zero gradients, zero moments), so slice-then-repad loses
+    nothing. The writer's pool depth is read from the tree itself. The pooled
+    leaves are the lists under ``params["layers"]``, ``params["lora"]``, their
+    optimizer mirrors (fp32 master, moments) and ``opt["grad_residual"]``,
+    which keep their first ``n_layers`` rows and gain ``zeros_like`` rows,
+    and the stacked tensors on such paths whose leading dimension is the old
+    depth (Adafactor's factored statistics of the layer pool), re-padded on
+    axis 0; Adafactor's statistics that drop the pool dimension pass through
+    untouched, as in the reference. Tensors stay on their devices; no data
+    is copied but the re-padded stacks."""
+    rows_old = _pool_depth(state)
+    rows_new = pool_rows(cfg, n_new)
+    if rows_old is None or rows_old == rows_new:
+        return state
+    if rows_old < cfg.n_layers:
+        raise ValueError(f"pool depth {rows_old} in the restored state is smaller than "
+                         f"n_layers={cfg.n_layers}: not a padded pool for this model")
+    pad = rows_new - cfg.n_layers
+
+    def fix(node, pooled):
+        if isinstance(node, dict):
+            return {k: fix(v, pooled or k in POOLED_KEYS) for k, v in node.items()}
+        if isinstance(node, list):
+            if not pooled or len(node) != rows_old:
+                return node
+            return node[:cfg.n_layers] + [tree_map(torch.zeros_like, node[0])
+                                          for _ in range(pad)]
+        if not pooled or node.ndim < 1 or node.shape[0] != rows_old:
+            return node
+        real = node[:cfg.n_layers]
+        return torch.cat([real, real.new_zeros((pad, *real.shape[1:]))])
+
+    return fix(state, False)

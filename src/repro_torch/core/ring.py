@@ -2,7 +2,8 @@
 that moves blocks between logical workers.
 
 The PyTorch counterpart of the sync subset of ``repro/core/ring.py``:
-``RingMachine.shift``, ``layer_fwd``, ``stage_fwd``, ``fused_loss``, ``assemble_block``,
+``shift_perm``, ``RingMachine.shift`` (with the rotation ``g0``),
+``layer_fwd``, ``stage_fwd``, ``fused_loss``, ``assemble_block``,
 ``deposit_plain`` and ``deposit_ef``; the dense payload codec of the prefetch
 path (``chunk_elem_range``, ``upload_slot``, ``promote_standby``,
 ``zeros_standby``); the quantized codec (``quantize_pool``,
@@ -18,9 +19,19 @@ The reference runs N workers as N devices under ``shard_map``, and a hop is
 a ``ppermute``. Here the N workers are logical: one process drives all of
 them on one device, and every move between workers (a hop, a gathered row, a
 streamed chunk, a code or scale row, a residual row, a deposit) goes through
-one transport object. ``OneCardTransport`` moves references, not bytes (all
-workers share the device); a multi-card transport over ``torch.distributed``
-(NCCL, ``batch_isend_irecv``) takes its place without touching the driver.
+one transport object, and every call names its source and destination
+workers as physical indices. ``OneCardTransport`` moves references, not bytes
+(all workers share the device); a multi-card transport over
+``torch.distributed`` (NCCL, ``batch_isend_irecv``) takes its place without
+touching the driver.
+
+``g0`` rotates the logical ring positions onto the physical workers (the
+paper's slot -> worker map ``(g0 + i) mod N``): injection enters at physical
+worker ``g0`` (logical 0) and the reduced wave leaves at physical ``(g0 + N -
+1) mod N`` (logical N-1). Physical worker p plays logical ``(p - g0) mod N``
+and keeps its own micro-batch group; pool ownership stays physical, so the
+pool shards never move and only the ring's endpoints rotate. ``g0 = 0`` is
+the unrotated ring, move for move.
 
 A block is a list of per-layer parameter dicts, one per real layer of the
 slot. Eager PyTorch knows each slot's size, so there are no padding rows and
@@ -81,6 +92,13 @@ def unflatten_like(template, leaves):
     return fill(template)
 
 
+def shift_perm(n: int, g0: int = 0) -> list[tuple[int, int]]:
+    """Open-ring hop as physical (src, dst) pairs: logical position i moves to
+    i+1 and logical N-1 drops off, with logical i at physical ``(g0 + i) %
+    n``. ``g0 = 0`` is ``[(0, 1), ..., (n-2, n-1)]``."""
+    return [((g0 + i) % n, (g0 + i + 1) % n) for i in range(n - 1)]
+
+
 def zeros_block(block, dtype=torch.float32):
     """A zero gradient buffer shaped like ``block``, in ``dtype``."""
     return tree_map(lambda a: torch.zeros(a.shape, dtype=dtype, device=a.device), block)
@@ -128,32 +146,40 @@ class StepAccum:
 
 
 class OneCardTransport:
-    """Every ring move for N logical workers that share one device.
+    """Every ring move for N logical workers that share one device. Workers
+    are named by physical index.
 
-    ``shift`` is the open-ring hop (logical worker i's entry moves to i+1;
-    worker N-1's drops off, and worker 0 receives nothing); ``gather`` is the
-    owner -> injection-worker copy of one pool row; ``send`` moves one
-    payload (a streamed chunk, a code or scale row, a residual row, a
-    compressed deposit) from worker ``src`` to worker ``dst``; ``deposit`` is
-    the tail -> owner copy of one fully reduced gradient row, summed into the
-    owner's accumulator. On one device each is a move of references."""
+    ``shift`` is the open-ring hop along ``perm`` (``shift_perm``'s pairs:
+    each source's entry moves to its destination; the worker no pair reaches
+    receives nothing); ``gather`` is the owner -> injection-worker copy of one
+    pool row; ``send`` moves one payload (a streamed chunk, a code or scale
+    row, a residual row, a compressed deposit) from worker ``src`` to worker
+    ``dst``; ``deposit`` is the ``src`` -> owner copy of one fully reduced
+    gradient row (``src`` is the tail, or the owner itself when the row
+    crossed already), summed into the owner's accumulator. On one device
+    each is a move of references."""
 
     def __init__(self, n_workers: int):
         self.n = n_workers
 
-    def shift(self, entries: list) -> list:
+    def shift(self, entries: list, perm) -> list:
         if len(entries) != self.n:
             raise ValueError(f"ring of {len(entries)} entries for {self.n} workers")
-        return [None] + entries[:-1]
+        out = [None] * self.n
+        for src, dst in perm:
+            out[dst] = entries[src]
+        return out
 
-    def gather(self, shards, owner: int, idx: int):
+    def gather(self, shards, owner: int, idx: int, dst: int):
+        del dst
         return shards[owner][idx]
 
     def send(self, payload, src: int, dst: int):
         del src, dst
         return payload
 
-    def deposit(self, grad_shards, owner: int, idx: int, row):
+    def deposit(self, grad_shards, owner: int, idx: int, row, src: int):
+        del src
         have = grad_shards[owner][idx]
         grad_shards[owner][idx] = row if have is None else tree_map(torch.add, have, row)
 
@@ -168,11 +194,15 @@ class RingMachine:
     and quantized rows index. ``prefetch_program`` supplies the per-slot
     chunk tables of the standby uploads; ``pool_dtype`` selects the quantized
     codec ("int8" or "int4") or none; ``lora`` (a ``LoraConfig``) is the
-    adapters' scale for the merged weights of the frozen-base mode."""
+    adapters' scale for the merged weights of the frozen-base mode. ``g0``
+    rotates the ring (module docstring): ``inj`` and ``tail`` are the
+    physical workers of logical 0 and N-1, and ``phys(w)`` is logical w's."""
 
     def __init__(self, *, cfg: ModelConfig, plan, n_workers: int, l_pad: int, transport,
                  pool_template, xent_chunk: int = 256, prefetch_program=None,
-                 pool_dtype: str = "none", lora=None):
+                 pool_dtype: str = "none", lora=None, g0: int = 0):
+        if not 0 <= g0 < n_workers:
+            raise ValueError(f"g0 must be in [0, {n_workers}), got {g0}")
         if l_pad % n_workers:
             raise ValueError(f"pool of {l_pad} rows over {n_workers} workers")
         if pool_dtype != "none" and pool_dtype not in POOL_DTYPE_BITS:
@@ -182,8 +212,10 @@ class RingMachine:
         self.plan = plan
         self.n = n_workers
         self.per = l_pad // n_workers
-        self.inj = 0                    # logical worker 0 takes the injected blocks
-        self.tail = n_workers - 1       # and the reduced rows leave from N-1
+        self.g0 = g0
+        self.inj = g0                               # physical worker of logical 0
+        self.tail = (g0 + n_workers - 1) % n_workers    # and of logical N-1
+        self.perm = shift_perm(n_workers, g0)
         self.transport = transport
         self.xent_chunk = xent_chunk
         self.prefetch_program = prefetch_program
@@ -212,9 +244,15 @@ class RingMachine:
     def owner(self, lid: int) -> tuple[int, int]:
         return divmod(lid, self.per)
 
+    def phys(self, w: int) -> int:
+        """The physical worker that plays logical ring position ``w``."""
+        return (w + self.g0) % self.n
+
     # ---- ring hop ----------------------------------------------------------
     def shift(self, entries: list) -> list:
-        return self.transport.shift(entries)
+        """One open-ring hop of ``entries`` (indexed by physical worker):
+        every entry moves one logical position up, logical N-1's drops off."""
+        return self.transport.shift(entries, self.perm)
 
     # ---- stage compute -----------------------------------------------------
     def layer_fwd(self, x, lw, aw=None):
@@ -242,8 +280,9 @@ class RingMachine:
     # ---- dense payload codec -----------------------------------------------
     def assemble_block(self, spec, shards) -> list:
         """Gather slot ``spec``'s layers from their pool owners to the
-        injection worker (logical 0)."""
-        return [self.transport.gather(shards, *self.owner(lid)) for lid in spec.layers]
+        injection worker (logical 0, physical ``inj``)."""
+        return [self.transport.gather(shards, *self.owner(lid), self.inj)
+                for lid in spec.layers]
 
     def chunk_elem_range(self, cu) -> tuple[int, int]:
         """A chunk's plan-byte range as an element range of the flat row (the
@@ -362,13 +401,14 @@ class RingMachine:
             srows.append(self.transport.send(qpool[owner][1][idx], owner, self.inj))
         return self.dequant_block(torch.stack(crows), torch.stack(srows), spec)
 
-    # ---- gradient deposits (a slot leaves the ring at logical worker N-1) ---
+    # ---- gradient deposits (a slot leaves the ring at logical N-1, ``tail``) -
     def deposit_plain(self, grad_shards, row, lid: int) -> None:
         """Exact fp32 deposit: the fully ring-reduced row of layer ``lid`` (a
         layer's or, frozen-base, its adapters') crosses from the tail worker
         to its owner and sums into the owner's accumulator row."""
         owner, idx = self.owner(lid)
-        self.transport.deposit(grad_shards, owner, idx, tree_map(lambda a: a.float(), row))
+        self.transport.deposit(grad_shards, owner, idx, tree_map(lambda a: a.float(), row),
+                               self.tail)
 
     def deposit_ef(self, grad_shards, res_shards, row, lid: int) -> None:
         """Error-feedback int8 deposit: per leaf, the tail compresses the
@@ -385,4 +425,4 @@ class RingMachine:
             codes, scale = tx.send(codes, self.tail, owner), tx.send(scale, self.tail, owner)
             res.copy_(tx.send(fresh, self.tail, owner))
             deq.append(decompress_int8(codes, scale, rw.shape))
-        tx.deposit(grad_shards, owner, idx, unflatten_like(res_row, deq))
+        tx.deposit(grad_shards, owner, idx, unflatten_like(res_row, deq), owner)

@@ -12,6 +12,9 @@ synchronous or chained staleness-1, checkpointed and restartable.
       --strategy roundpipe --mesh 1x4 --batch 8 --seq 1024 --async-opt --async-steps 4 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
       --strategy roundpipe --mesh 1x4 --steps 4 --ckpt-dir D --ckpt-every 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \\
+      --strategy roundpipe --mesh 1x4 --steps 4 --ckpt-dir D --ckpt-every 2 \\
+      --elastic --async-ckpt --device cpu
 
 The flags are those of ``repro.launch.train`` (``docs/cli.md``) and
 ``--device``. ``--mesh 1xN`` runs N logical ring workers on the one device,
@@ -21,16 +24,23 @@ or int4 codes; ``--grad-compress int8`` makes the deposits error-feedback
 int8; ``--lora-rank r`` fine-tunes rank-r adapters over a frozen base
 (``--lora-alpha``, ``--lora-targets``); ``--async-opt --async-steps K`` chains
 K optimizer steps in one staleness-1 ring program (``--steps`` a multiple of
-K); ``--schedule searched`` runs the searched schedule (a rotated winner is
-refused). Steps run under ``runtime.FaultTolerantLoop``: with ``--ckpt-dir``
-the state is saved every ``--ckpt-every`` optimizer steps (at chain ends
-under ``--async-opt``) and a run resumes from the newest checkpoint there.
-Unlike the reference, which defaults to ``/tmp/repro_ckpt``, ``--ckpt-dir``
-defaults to none: no checkpoint is written or read unless asked for (a
-full-width train state is ~24 GB). What the port does not run yet is
-refused by name: a data axis, ``gspmd``, ``--elastic``, ``--async-ckpt`` and
-training of the rwkv6 and hybrid families (their scan kernels are forward
-only; ``launch.serve`` serves both). Runs on the card unless ``--device cpu``.
+K); ``--schedule searched`` runs the searched schedule (its winner may
+rotate the ring). Steps run under ``runtime.FaultTolerantLoop``: with
+``--ckpt-dir`` the state is saved every ``--ckpt-every`` optimizer steps (at
+chain ends under ``--async-opt``) and a run resumes from the newest
+checkpoint there. Unlike the reference, which defaults to
+``/tmp/repro_ckpt``, ``--ckpt-dir`` defaults to none: no checkpoint is
+written or read unless asked for (a full-width train state is ~24 GB).
+``--elastic`` and ``--async-ckpt`` run the steps under the goodput
+supervisor (``runtime.Supervisor``) instead, which needs ``--ckpt-dir``: a
+persistent straggler (``--straggler-factor``) rotates the ring, a dead
+worker re-plans the ring for the survivors and resumes from the newest
+checkpoint re-padded to the new pool depth, and ``--async-ckpt`` writes the
+checkpoints on a background thread; both drive the synchronous step, from
+flat batches. What the port does not run yet is refused by name: a data
+axis, ``gspmd`` and training of the rwkv6 and hybrid families (their scan
+kernels are forward only; ``launch.serve`` serves both). Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -72,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--schedule", default="hand", choices=["hand", "searched"],
                     help="tick-program selector: 'hand' runs plan.tick_program; 'searched' "
                          "scores the schedule family with simulate_plan and runs the certified "
-                         "winner (a winner that rotates the ring is refused)")
+                         "winner, which may rotate the ring's injection point (g0)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None,
                     help="save atomic checkpoints here and resume from the newest one; none "
@@ -85,11 +95,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--async-steps", type=int, default=4,
                     help="with --async-opt: optimizer steps chained per program call; must "
                          "divide --steps")
-    ap.add_argument("--elastic", action="store_true", help="not ported yet")
-    ap.add_argument("--async-ckpt", action="store_true", help="not ported yet")
+    ap.add_argument("--elastic", action="store_true",
+                    help="goodput supervisor: on a dead worker, re-plan the ring for the "
+                         "survivors and resume from the newest checkpoint (needs --ckpt-dir)")
+    ap.add_argument("--async-ckpt", action="store_true",
+                    help="goodput supervisor with checkpoints written on a background "
+                         "thread; the step pays only the device-to-host snapshot "
+                         "(needs --ckpt-dir)")
     ap.add_argument("--straggler-factor", type=float, default=2.0,
                     help="a step slower than FACTOR x the trailing median is counted a "
-                         "straggler")
+                         "straggler; under the supervisor a worker that slow rotates the "
+                         "ring")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="the device of the whole run; cpu runs the kernels' plain versions")
@@ -103,8 +119,6 @@ def _refusals(args, n_data: int) -> list[str]:
             get_config(args.arch).block_kind in ("rwkv6", "hybrid"),
         "--strategy gspmd": args.strategy != "roundpipe",
         f"a data axis of {n_data} (--mesh)": n_data != 1,
-        "--elastic (item 11)": args.elastic,
-        "--async-ckpt (item 11)": args.async_ckpt,
     }
     return [name for name, hit in later.items() if hit]
 
@@ -129,6 +143,15 @@ def run_training(args) -> dict:
     ending on a device synchronise, split evenly over its steps), the
     executed plan and the ``FaultTolerantLoop``."""
     n_data, n_model = (int(x) for x in args.mesh.split("x"))
+    use_supervisor = args.elastic or args.async_ckpt
+    if args.elastic and args.strategy != "roundpipe":
+        raise SystemExit("--elastic requires --strategy roundpipe: elastic re-planning re-runs "
+                         "the plan compiler for the surviving workers")
+    if use_supervisor and args.async_opt:
+        raise SystemExit("--elastic/--async-ckpt drive the synchronous step: drop --async-opt")
+    if use_supervisor and not args.ckpt_dir:
+        raise SystemExit("--elastic/--async-ckpt need --ckpt-dir: the supervisor restores "
+                         "from and writes its checkpoints to a directory")
     refused = _refusals(args, n_data)
     if refused:
         raise SystemExit("not ported yet (ROADMAP.md, Queue 1): " + ", ".join(refused)
@@ -212,10 +235,19 @@ def run_training(args) -> dict:
                           pool_dtype=args.pool_dtype, grad_compress=args.grad_compress,
                           schedule=args.schedule, opt=OptConfig(lr=args.lr))
     # round-major pipeline: synchronous multi-round steps take (R, B/R, S)
-    # batches straight from the dataset, with no reshape in the step
-    rounds_data = plan.rounds_for(microbatches) if microbatches and not args.async_opt else 0
+    # batches straight from the dataset, with no reshape in the step. The
+    # supervisor keeps flat batches: a replay after an elastic re-plan must
+    # feed the smaller ring the same samples a step
+    rounds_data = (plan.rounds_for(microbatches)
+                   if microbatches and not args.async_opt and not use_supervisor else 0)
     data = SyntheticLMDataset(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                          rounds=rounds_data))
+    resumed_from = latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if resumed_from is not None:
+        print(f"resuming from checkpoint step {resumed_from} in {args.ckpt_dir}")
+    if use_supervisor:
+        return _run_supervised(args, cfg, step_cfg, data, plan, n_model, device,
+                               resumed_from)
     if args.async_opt:
         step, plan = build_roundpipe_async_train_step(cfg, n_model, step_cfg, args.batch,
                                                       args.seq, steps_per_call=k_chain,
@@ -231,9 +263,6 @@ def run_training(args) -> dict:
     # the state's structure and shapes, on the meta device, for a restore
     like = init_roundpipe_state(torch.Generator(), cfg, step_cfg, n_workers=n_model,
                                 device="meta")
-    resumed_from = latest_step(args.ckpt_dir) if args.ckpt_dir else None
-    if resumed_from is not None:
-        print(f"resuming from checkpoint step {resumed_from} in {args.ckpt_dir}")
     mgr = (CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every) if args.ckpt_dir
            else _NoCheckpoints())
 
@@ -302,6 +331,116 @@ def run_training(args) -> dict:
         print(f"done: {final} steps (all restored from checkpoint)")
     return {"state": state, "losses": losses, "steps": final, "resumed_from": resumed_from,
             "step_s": step_s, "plan": plan, "loop": loop}
+
+
+def _run_supervised(args, cfg, step_cfg, data, plan, n_model: int, device,
+                    resumed_from) -> dict:
+    """The --elastic / --async-ckpt path: the goodput supervisor drives the
+    synchronous train step through a runtime factory. A worker death rebuilds
+    the ring for the survivors (the plan of ``replan_for_survivors``, its
+    micro-batch count, the same device) and resumes through the elastic
+    restore (``reshape_pooled_state``); a persistent straggler rebuilds the
+    step with the rotated ``g0`` that the schedule search picks under the
+    measured slowdown. Checkpoints go through the background writer with
+    --async-ckpt."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.dispatch import (build_roundpipe_train_step, init_roundpipe_state,
+                                           reshape_pooled_state)
+    from repro_torch.core.plan import replan_for_survivors
+    from repro_torch.core.simulator import search_schedule
+    from repro_torch.optim.adam import tree_map
+    from repro_torch.runtime import StragglerPolicy, Supervisor
+
+    losses, step_s = [], []
+    plans = {n_model: (plan, step_cfg.n_microbatches)}     # ring size -> (plan, M)
+
+    def make_runtime(*, n_workers, g0, use_async, replan=None):
+        del use_async          # the launcher wires the synchronous step only
+        if replan is not None:
+            if args.batch % replan.n_microbatches:
+                raise SystemExit(
+                    f"elastic re-plan chose M={replan.n_microbatches} micro-batches for "
+                    f"N={n_workers} survivors but --batch {args.batch} is not divisible by "
+                    f"it: pick a global batch divisible by every worker count you intend "
+                    f"to survive on")
+            plans[n_workers] = (replan.plan, replan.n_microbatches)
+        rt_plan, m = plans[n_workers]
+        scfg = dataclasses.replace(step_cfg, partition=rt_plan, n_microbatches=m, g0=g0)
+        step, _ = build_roundpipe_train_step(cfg, n_workers, scfg, args.batch, args.seq,
+                                             plan=rt_plan)
+
+        class _Runtime:
+            like = init_roundpipe_state(torch.Generator(), cfg, scfg, n_workers=n_workers,
+                                        device="meta")
+
+            @staticmethod
+            def init_state():
+                gen = torch.Generator(device=device).manual_seed(0)
+                return init_roundpipe_state(gen, cfg, scfg, n_workers=n_workers,
+                                            device=device)
+
+            @staticmethod
+            def batch_for(i):
+                return i, {k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+
+            @staticmethod
+            def step_fn(state, step_batch):
+                i, batch = step_batch
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                losses.append(loss)
+                step_s.append(dt)
+                if i % args.log_every == 0:
+                    print(f"step {i:5d} loss {loss:.4f} gnorm "
+                          f"{float(metrics['grad_norm']):.3f} {dt * 1e3:7.1f} ms/step on "
+                          f"N={n_workers} g0={g0}", flush=True)
+                return state, metrics
+
+            @staticmethod
+            def adapt_state(host_state):
+                return tree_map(lambda t: t.to(device),
+                                reshape_pooled_state(host_state, cfg, n_workers))
+
+            @staticmethod
+            def rescore(scales):
+                # the rotation family re-scored under the measured slowdown; the
+                # winner's g0 is the next step's injection worker
+                return search_schedule(rt_plan, m or n_workers, round_size=n_workers,
+                                       device_scale=list(scales)).choice.g0
+
+        return _Runtime()
+
+    replan_fn = None
+    if args.elastic:
+        def replan_fn(n_surviving):
+            return replan_for_survivors(cfg, n_surviving,
+                                        n_microbatches=step_cfg.n_microbatches,
+                                        lora=step_cfg.lora, pool_dtype=args.pool_dtype)
+
+    sup = Supervisor(make_runtime, args.ckpt_dir, n_workers=n_model, replan_fn=replan_fn,
+                     straggler=StragglerPolicy(factor=args.straggler_factor),
+                     save_every=args.ckpt_every, async_ckpt=args.async_ckpt,
+                     step_timeout_s=600.0)
+    t0 = time.perf_counter()
+    state, final = sup.run(args.steps)
+    dt = time.perf_counter() - t0
+    rep = sup.meter.report()
+    print(f"done: {final} steps in {dt:.1f}s on N={sup.n_workers}; "
+          f"goodput {rep['goodput']:.3f} (ckpt {rep['ckpt_s']:.2f}s replan "
+          f"{rep['replan_s']:.2f}s replay {rep['replay_s']:.2f}s); "
+          f"events={[e.kind for e in sup.events]}")
+    if sup.ckpt_io:
+        io = sup.ckpt_io
+        print(f"async checkpoints: {io['written']} written; snapshot {io['snapshot_s']:.2f}s "
+              f"on the caller, write {io['write_s']:.2f}s in the background")
+    return {"state": state, "losses": losses, "steps": final, "resumed_from": resumed_from,
+            "step_s": step_s, "plan": plan, "goodput": rep, "events": sup.events,
+            "n_workers": sup.n_workers, "supervisor": sup}
 
 
 def main(argv=None) -> dict:

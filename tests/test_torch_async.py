@@ -669,19 +669,34 @@ def test_search_schedule_matches_the_reference(layers, partition, micro, iters, 
 
 
 def test_a_rotated_searched_schedule_is_refused_by_name(monkeypatch):
-    """The ring does not rotate yet: a searched winner with g0 != 0 raises
-    and names the supervisor's item; a g0 = 0 winner runs."""
+    """A searched winner with g0 != 0 is no longer refused: the chained and
+    the synchronous builders run its rotated program, on the losses and the
+    weights of the unrotated one (the rotation changes only which physical
+    worker plays each logical position, and so the order of fp32 sums)."""
     _, cfg = configs(8)
     p = plan.plan_from_config(cfg, N)
     scfg = StepConfig(strategy="roundpipe", partition=p, schedule="searched", kv_chunk=8,
-                      xent_chunk=8)
-    dispatch.build_roundpipe_async_train_step(cfg, N, scfg, B, S, steps_per_call=2, plan=p)
-    rotated = simulator.search_schedule(p, N, iterations=2, candidates=[
-        simulator.ScheduleChoice("hand"), simulator.ScheduleChoice("rot1", g0=1)],
-        device_scale=[3.0, 1.0, 1.0, 1.0])
-    assert rotated.program.g0 == 1
-    monkeypatch.setattr(simulator, "search_schedule", lambda *a, **k: rotated)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dispatch.build_roundpipe_async_train_step(cfg, N, scfg, B, S, steps_per_call=2, plan=p)
-    with pytest.raises(NotImplementedError, match="rotates the ring"):
-        dispatch.build_roundpipe_train_step(cfg, N, scfg, B, S, plan=p)
+                      xent_chunk=8, opt=OptConfig(lr=LR))
+    batches = torch_batches(make_batches(cfg, 2, B, seed=21))
+    hand, _ = dispatch.build_roundpipe_async_train_step(cfg, N, scfg, B, S, steps_per_call=2,
+                                                        plan=p)
+    want, want_m = hand(dense_state(8, cfg), batches)
+    search = simulator.search_schedule
+
+    def rotated(iterations):
+        result = search(p, N, iterations=iterations, candidates=[
+            simulator.ScheduleChoice("hand"), simulator.ScheduleChoice("rot1", g0=1)],
+            device_scale=[3.0, 1.0, 1.0, 1.0])
+        assert result.program.g0 == 1
+        return result
+
+    monkeypatch.setattr(simulator, "search_schedule", lambda *a, **k: rotated(2))
+    multi, _ = dispatch.build_roundpipe_async_train_step(cfg, N, scfg, B, S, steps_per_call=2,
+                                                         plan=p)
+    got, got_m = multi(dense_state(8, cfg), batches)
+    np.testing.assert_allclose(npf(got_m["loss"]), npf(want_m["loss"]), rtol=1e-5)
+    assert worst_rel(real_params(want["params"], cfg), real_params(got["params"], cfg)) < 1e-4
+    monkeypatch.setattr(simulator, "search_schedule", lambda *a, **k: rotated(1))
+    sync, _ = dispatch.build_roundpipe_train_step(cfg, N, scfg, B, S, plan=p)
+    _, m = sync(dense_state(8, cfg), step_of(0, batches))
+    np.testing.assert_allclose(float(m["loss"]), float(want_m["loss"][0]), rtol=1e-5)

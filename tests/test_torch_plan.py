@@ -203,14 +203,19 @@ def test_pool_layout_matches_the_reference():
 
 def test_unported_parts_of_the_plan_layer_raise():
     """The plan layer generates rotated tick programs (``g0 != 0``), which
-    ``search_schedule`` may pick; the ring does not rotate yet and refuses
-    them by name."""
+    ``search_schedule`` may pick; the ring runs them now, and a program whose
+    rotation names no worker of the plan raises."""
     from repro_torch.core import dispatch
     _, cfg = _cfg(7)
     p = plan.plan_from_config(cfg, N)
     assert simulator.search_schedule(p).program.g0 == 0
-    with pytest.raises(NotImplementedError, match="g0=1"):
-        dispatch._check_program(p.tick_program(1, 2, g0=1), p, 1, 2)
+    assert simulator.search_schedule(p, device_scale=[1.0, 1.0, 5.0, 1.0]).program.g0 == 3
+    for g0 in range(N):
+        program = p.tick_program(1, 2, g0=g0)
+        assert dispatch._check_program(program, p, 1, 2) is program
+    bad = dataclasses.replace(p.tick_program(1, 2), g0=N)
+    with pytest.raises(ValueError, match=f"g0={N} out of range"):
+        dispatch._check_program(bad, p, 1, 2)
 
 
 def test_port_trains_with_jax_and_the_reference_blocked():

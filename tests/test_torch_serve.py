@@ -75,6 +75,7 @@ def test_port_imports_and_serves_with_jax_and_the_reference_blocked():
     modules = sorted(".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                      for p in PORT.rglob("*.py"))
     assert {"repro_torch.checkpoint.store", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.runtime.supervisor",
             "repro_torch.optim.async_opt", "repro_torch.core.consistency"} <= set(modules)
     code = (
         "import sys, importlib\n"

@@ -360,17 +360,16 @@ def test_ring_matches_single_program(kind, n_layers):
 def test_ring_refuses_what_is_not_ported():
     _, cfg = configs(7)
     p = plan.plan_from_config(cfg, N)
-    for kw, item in [({"g0": 1}, "supervisor")]:
-        with pytest.raises(NotImplementedError, match=item):
-            dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw)
-    # prefetch, rounds, the quantized pool, compressed deposits and LoRA are ported
+    # prefetch, rounds, the quantized pool, compressed deposits, LoRA and the
+    # rotation are ported
     from repro_torch.models.lora import LoraConfig
     for kw in [{"lora": LoraConfig(rank=4)}, {"pool_dtype": "int8"}, {"pool_dtype": "int4"},
                {"grad_compress": "int8"}, {"n_microbatches": 8},
-               {"prefetch_program": p.prefetch_program()}]:
+               {"prefetch_program": p.prefetch_program()}, {"g0": 1}, {"g0": N - 1}]:
         assert callable(dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw))
-    for kw in [{"pool_dtype": "int2"}, {"grad_compress": "int4"}]:
-        with pytest.raises(ValueError, match="unknown"):
+    for kw, what in [({"pool_dtype": "int2"}, "unknown"), ({"grad_compress": "int4"}, "unknown"),
+                     ({"g0": N}, "out of range"), ({"g0": -1}, "out of range")]:
+        with pytest.raises(ValueError, match=what):
             dispatch.build_roundpipe_grads_fn(cfg, N, p, **kw)
 
 
