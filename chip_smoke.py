@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero at once:
      and a partly filled ring of 1024 slots) and over an edge sweep (for
      flash-decode also the edges of its splits: S one past a whole number of
      splits, n_valid on a split edge and one past it, 0 and past S, at
-     groups 4, 5 and 16), at the
+     groups 4, 5 and 16), and at head dims above 128 in fp32 and bf16
+     (gemma-2b's 256 under MQA, stablelm-12b's 160, nemotron-4-340b's 192
+     with a group of 12, MLA's Dh 192 with Dv 128; ragged S, a window,
+     strided and padded layouts; the flash backward too), at the
      tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2); the
      training kernels at the training shapes and over an edge sweep, the
      flash backward against ``ref.flash_attention_bwd_ref`` and against
@@ -148,7 +151,19 @@ Phases, in order; any failure exits non-zero at once:
      step paid, the writer's snapshot and background-write seconds); and a
      one-round step at 28 layers traced at g0 = 0 and g0 = 1 in turns, with
      the plan's launches at both;
- 12. print the card's line, the ``kernels`` JSON line, then the result line.
+ 12. the dense configs with head dims above 128, at full width: serve
+     gemma-2b (18 layers, d_head 256, MQA) and stablelm-12b (40 layers,
+     d_head 160) as qwen3-1.7b is served (launches, finite logits, decode
+     against prefill in bf16 and at 2 layers in fp32; warm prefill and
+     decode steps, peak memory); train gemma-2b one round through the
+     launcher (launches against the plan, finite losses, peak memory) and 3
+     steps of a fresh state on a repeated batch (falling losses, a traced
+     step by slot kind); gemma-2b's ring against its single program at 2
+     layers, fp32 (loss rtol 1e-4, worst relative 5e-3); and the d_head-256
+     kernels at gemma-2b's shapes beside their bounds, their plain versions
+     and SDPA (rows ``<kernel>@gemma-2b`` of the ``kernels`` line, launches
+     of the gemma-2b runs);
+ 13. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -166,6 +181,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen3-1.7b"
+WIDE_ARCH = "gemma-2b"                       # d_head 256: the wide kernels on the main path
+WIDE_SERVE_ARCHS = ("gemma-2b", "stablelm-12b")   # d_head 256 and 160
+WIDE_CASE_ARCHS = ("gemma-2b", "stablelm-12b", "nemotron-4-340b")   # 256, 160, 192
 DEVICE = "cuda"
 BATCH, PROMPT, GEN = 4, 1024, 32
 TRAIN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 1024, 3
@@ -316,15 +334,45 @@ def flash_cases():
               ("window-bf16", 1, 300, 4, 2, 64, 64, True, 100, bf16, "bshd"),
               ("bidirectional-bf16", 2, 130, 4, 4, 32, 32, False, None, bf16, "bshd"),
               ("unaligned-bf16", 2, 100, 4, 2, 36, 20, True, None, bf16, "bshd")]
+    return cases + wide_flash_cases()
+
+
+def wide_flash_cases():
+    """Head dims above 128, in fp32 and bf16: gemma-2b's prefill (D 256, MQA),
+    stablelm-12b's (D 160), nemotron-4-340b's (D 192, group 12) at a small B
+    and S, MLA's prefill head (Dh 192, Dv 128), ragged S, a window, strided
+    (B,H,S,D) storage and bf16 heads TMA cannot read (padded by the wrapper)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for arch in WIDE_CASE_ARCHS:
+        a = _attn(arch)
+        b, s = (BATCH, PROMPT) if a["h"] <= 32 else (1, 256)
+        for dtype in (bf16, f32):
+            cases.append((f"{arch}-{dtype_name(dtype)}", b, s, a["h"], a["kh"], a["d"], a["d"],
+                          True, None, dtype, "bshd"))
+    for dtype in (bf16, f32):
+        n = dtype_name(dtype)
+        cases += [(f"mla-192-128-{n}", 2, 300, 16, 16, 192, 128, True, None, dtype, "bshd"),
+                  (f"wide-ragged-{n}", 2, 777, 8, 1, 256, 256, True, None, dtype, "bshd"),
+                  (f"wide-window-{n}", 1, 500, 8, 2, 160, 160, True, 100, dtype, "bshd"),
+                  (f"wide-bidirectional-{n}", 2, 130, 4, 4, 192, 192, False, None, dtype, "bshd"),
+                  (f"wide-strided-bhsd-{n}", 2, 200, 8, 2, 256, 256, True, 64, dtype, "bhsd")]
+    cases.append(("wide-unaligned-bf16", 2, 100, 4, 2, 196, 132, True, None, bf16, "bshd"))
     return cases
+
+
+def _attn(arch):
+    """An arch's attention shapes: heads, kv heads and d_head."""
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch)
+    return {"h": cfg.n_heads, "kh": cfg.n_kv_heads, "d": cfg.d_head}
 
 
 def _hybrid_attn():
     """hymba-1.5b's attention shapes: heads, kv heads, d_head and window."""
     from repro_torch.models.config import get_config
-    cfg = get_config(HYBRID_ARCH)
-    return {"h": cfg.n_heads, "kh": cfg.n_kv_heads, "d": cfg.d_head,
-            "window": cfg.sliding_window}
+    return {**_attn(HYBRID_ARCH), "window": get_config(HYBRID_ARCH).sliding_window}
 
 
 def _flash_inputs(b, s, h, kh, dh, dv, dtype, layout, gen):
@@ -364,6 +412,7 @@ def decode_cases():
     # base 4 bytes off): the wrapper's padded copies
     cases += [(f"unaligned-{dtype_name(dtype)}", 2, 300, 8, 2, 36, 20, [300, 7], dtype,
                "misaligned") for dtype in (f32, bf16)]
+    cases += wide_decode_cases()
     # the split pass's edges, on the plan the wrapper makes for these shapes:
     # S one past a whole number of splits; n_valid on a split edge and one
     # past it (later splits empty), 0 (uniform over all S) and past S
@@ -375,6 +424,33 @@ def decode_cases():
             nv = [2 * chunk, 2 * chunk + 1, 0, s + 100][:b]
             cases.append((f"split-edges-b{b}-h{h}-kh{kh}-d{d}-dv{dv}-{dtype_name(dtype)}", b, s,
                           h, kh, d, dv, nv, dtype, "dense"))
+    return cases
+
+
+def wide_decode_cases():
+    """Head dims above 128, in fp32 and bf16: gemma-2b's decode (D 256, MQA,
+    a group of 8), stablelm-12b's (D 160), nemotron-4-340b's (D 192, a group
+    of 12), MLA's head (Dh 192, Dv 128), the split edges at D 256 and the
+    strided and misaligned caches."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    s_srv = PROMPT + GEN
+    cases = []
+    for arch in WIDE_CASE_ARCHS:
+        a = _attn(arch)
+        for dtype in (bf16, f32):
+            cases.append((f"{arch}-{dtype_name(dtype)}", BATCH, s_srv, a["h"], a["kh"], a["d"],
+                          a["d"], [s_srv, s_srv - 31, 1, 517][:BATCH], dtype, "dense"))
+    for dtype in (bf16, f32):
+        n = dtype_name(dtype)
+        chunk = _decode_chunk(321, 4, 1)
+        s = 5 * chunk + 1
+        cases += [(f"mla-192-128-{n}", 2, 300, 16, 16, 192, 128, [300, 7], dtype, "dense"),
+                  (f"wide-split-edges-{n}", 4, s, 8, 1, 256, 256,
+                   [2 * chunk, 2 * chunk + 1, 0, s + 100], dtype, "dense"),
+                  (f"wide-strided-{n}", 2, 200, 16, 8, 160, 160, [200, 33], dtype, "sliced"),
+                  (f"wide-misaligned-{n}", 2, 300, 8, 2, 196, 132, [300, 7], dtype,
+                   "misaligned")]
     return cases
 
 
@@ -430,12 +506,17 @@ def phase_kernels():
         f"{name} {len([1 for n, _ in errs if n == name])} cases, serving err "
         f"{errs[(name, 'serving')]:.3e}, hymba err {errs[(name, 'hymba')]:.3e}, worst "
         f"{worst[name]:.3e}" for name in worst))
-    return _err_summary(errs, "serving", extra=("hymba",))
+    wide = {c[0] for c in wide_flash_cases() + wide_decode_cases()}
+    print("kernels vs plain, head dims above 128: " + json.dumps(
+        {f"{name}[{label}]": e for (name, label), e in errs.items() if label in wide}))
+    return _err_summary(errs, "serving", extra=("hymba",), wide=wide)
 
 
-def _err_summary(errs, main, extra=()):
+def _err_summary(errs, main, extra=(), wide=()):
     """{name: worst max abs err over every case, "name@main": the error at
-    the main path's shape (and "name@label" for each ``extra`` label)}."""
+    the main path's shape (and "name@label" for each ``extra`` label),
+    "name@wide": the worst over the ``wide`` labels (the head dims above 128)
+    and "name@<WIDE_ARCH>": the error at its bf16 case}."""
     out = {}
     for (name, label), e in errs.items():
         out[name] = max(out.get(name, 0.0), e)
@@ -443,6 +524,10 @@ def _err_summary(errs, main, extra=()):
             out[f"{name}@main"] = e
         if label in extra:
             out[f"{name}@{label}"] = e
+        if label in wide:
+            out[f"{name}@wide"] = max(out.get(f"{name}@wide", 0.0), e)
+        if label == f"{WIDE_ARCH}-bfloat16":
+            out[f"{name}@{WIDE_ARCH}"] = e
     return out
 
 
@@ -493,6 +578,31 @@ def flash_bwd_cases():
               ("strided-bhsd", 2, 200, 8, 2, 128, 128, True, 64, bf16, "bhsd"),
               # rows TMA cannot read (72- and 40-byte heads): the wrapper's padded copies
               ("unaligned-bf16", 2, 100, 4, 2, 36, 20, True, None, bf16, "bshd")]
+    return cases + wide_bwd_cases()
+
+
+def wide_bwd_cases():
+    """Head dims above 128, in fp32 and bf16: gemma-2b's training shape (one
+    ring worker's B at S 1024, D 256, MQA), stablelm-12b's (D 160) and
+    nemotron-4-340b's (D 192, group 12) at a small B and S, MLA's (Dh 192,
+    Dv 128), ragged S, a window, strided storage and padded bf16 heads."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    bw = TRAIN_BATCH // TRAIN_WORKERS
+    cases = []
+    for arch in WIDE_CASE_ARCHS:
+        a = _attn(arch)
+        b, s = (bw, TRAIN_SEQ) if arch == WIDE_ARCH else (1, 256)
+        for dtype in (bf16, f32):
+            cases.append((f"{arch}-{dtype_name(dtype)}", b, s, a["h"], a["kh"], a["d"], a["d"],
+                          True, None, dtype, "bshd"))
+    for dtype in (bf16, f32):
+        n = dtype_name(dtype)
+        cases += [(f"mla-192-128-{n}", 1, 300, 8, 8, 192, 128, True, None, dtype, "bshd"),
+                  (f"wide-ragged-{n}", 2, 333, 8, 1, 256, 256, True, None, dtype, "bshd"),
+                  (f"wide-window-{n}", 1, 300, 4, 2, 160, 160, True, 100, dtype, "bshd"),
+                  (f"wide-strided-bhsd-{n}", 2, 200, 8, 2, 256, 256, True, 64, dtype, "bhsd")]
+    cases.append(("wide-unaligned-bf16", 2, 100, 4, 2, 196, 132, True, None, bf16, "bshd"))
     return cases
 
 
@@ -581,14 +691,17 @@ def phase_train_kernels():
         worst = max(e for (k, _), e in errs.items() if k == name)
         print(f"kernels vs plain: {name} {n} cases, training err "
               f"{errs[(name, 'training')]:.3e}, worst {worst:.3e}")
-    return _err_summary(errs, "training")
+    wide = {c[0] for c in wide_bwd_cases()}
+    print("kernels vs plain, head dims above 128: " + json.dumps(
+        {f"{name}[{label}]": e for (name, label), e in errs.items() if label in wide}))
+    return _err_summary(errs, "training", wide=wide)
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def phase_serve():
+def phase_serve(arch=ARCH):
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -596,17 +709,20 @@ def phase_serve():
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import transformer as T
     from repro_torch.models.config import get_config
+    from repro_torch.optim.adam import tree_leaves
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     decode_attention.launches = 0
-    served = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+    served = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
                          "--gen", str(GEN), "--device", DEVICE])
     launches = {"flash_attention": flash_attention.launches,
                 "decode_attention": decode_attention.launches}
-    print(f"main path launches: {launches}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    served.peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"main path launches ({arch}): {launches}, peak memory "
+          f"{served.peak_memory_gb:.2f} GB")
     check(launches["flash_attention"] == cfg.n_layers,
           f"flash launches {launches['flash_attention']} != {cfg.n_layers}")
     check(launches["decode_attention"] == cfg.n_layers * GEN,
@@ -624,23 +740,31 @@ def phase_serve():
     prefix = torch.cat([served.prompts, served.tokens[:, :1]], dim=1)
     got = served.logits[1]
     want, _ = build_prefill_step(cfg, PROMPT + 1)(served.params, {"tokens": prefix})
-    truth, _ = build_prefill_step(cfg, PROMPT + 1)(_cast(served.params, torch.float32),
-                                                   {"tokens": prefix})
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
-    print(f"decode vs prefill, bf16, {cfg.n_layers} layers, relative error: decode vs "
-          f"fp32 {rel(got, truth):.3e}, prefill vs fp32 {rel(want, truth):.3e}, decode vs "
-          f"prefill {rel(got, want):.3e} (max abs {(got - want).abs().max().item():.3e}, "
-          f"logits max abs {truth.abs().max().item():.2f}); argmax agrees with fp32: decode "
-          f"{(got.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}, prefill "
-          f"{(want.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}")
+    # an fp32 copy of the weights where it fits beside them (not stablelm-12b's 48 GB)
+    fp32_bytes = 4 * sum(t.numel() for t in tree_leaves(served.params))
+    if fp32_bytes < torch.cuda.mem_get_info()[0] / 2:
+        truth, _ = build_prefill_step(cfg, PROMPT + 1)(_cast(served.params, torch.float32),
+                                                       {"tokens": prefix})
+        print(f"decode vs prefill, bf16, {cfg.n_layers} layers, relative error: decode vs "
+              f"fp32 {rel(got, truth):.3e}, prefill vs fp32 {rel(want, truth):.3e}, decode vs "
+              f"prefill {rel(got, want):.3e} (max abs {(got - want).abs().max().item():.3e}, "
+              f"logits max abs {truth.abs().max().item():.2f}); argmax agrees with fp32: decode "
+              f"{(got.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}, prefill "
+              f"{(want.argmax(-1) == truth.argmax(-1)).float().mean().item():.2f}")
+        check(rel(got, truth) <= 2e-2 and rel(want, truth) <= 2e-2,
+              "bf16 serving logits are off the fp32 prefill of the same prefix")
+        del truth
+    else:
+        print(f"decode vs prefill, bf16, {cfg.n_layers} layers, relative error {rel(got, want):.3e} "
+              f"(max abs {(got - want).abs().max().item():.3e}); no fp32 prefill at full depth: "
+              f"{fp32_bytes / 1e9:.1f} GB of fp32 weights")
     check(rel(got, want) <= 2e-2, "bf16 decode logits disagree with the prefill of the "
                                   "same prefix")
-    check(rel(got, truth) <= 2e-2 and rel(want, truth) <= 2e-2,
-          "bf16 serving logits are off the fp32 prefill of the same prefix")
-    del truth
+    served.decode_vs_prefill_rel = rel(got, want)
 
     # The same check in fp32 at full width and two layers: the bf16 check
     # above is bounded by bf16 rounding, this one by fp32 sum order.
@@ -652,10 +776,11 @@ def phase_serve():
     step_logits, _ = build_decode_step(cfg2)(p32, cache, toks[:, 256])
     want32, _ = build_prefill_step(cfg2, 257)(p32, {"tokens": toks})
     f32_err = (step_logits - want32).abs().max().item()
-    print(f"decode vs prefill, fp32, 2 layers: max abs err {f32_err:.3e}")
+    print(f"decode vs prefill, fp32, 2 layers ({arch}): max abs err {f32_err:.3e}")
     check(torch.allclose(step_logits, want32, rtol=1e-4, atol=1e-4),
           "fp32 decode logits disagree with the prefill of the same prefix")
     del p32, cache
+    torch.cuda.empty_cache()
     return served, launches
 
 
@@ -757,6 +882,40 @@ def _kernel_ms(fn, sets, reps):
     return out
 
 
+def _warm_serving(cfg, served):
+    """The serve run's own times, and warm ones on the host around a
+    synchronise: the median of 3 prefills of the prompts, and ``GEN`` greedy
+    decode steps (ms per step of ``BATCH`` tokens)."""
+    import torch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    prefill = build_prefill_step(cfg, PROMPT + GEN)
+    decode = build_decode_step(cfg)
+    batch = {"tokens": served.prompts}
+    t_pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(served.params, batch)
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t0)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN):
+        logits, cache = decode(served.params, cache, tok)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    return {
+        "serve_run": {"prefill_ms": served.t_prefill * 1e3,
+                      "decode_ms_per_token": served.t_decode * 1e3 / GEN},
+        "warm": {"prefill_ms": sorted(t_pre)[1] * 1e3,
+                 "prefill_tok_per_s": BATCH * PROMPT / sorted(t_pre)[1],
+                 "decode_ms_per_token": t_dec * 1e3 / GEN,
+                 "decode_tok_per_s": BATCH * GEN / t_dec},
+    }
+
+
 def _sdpa_gqa():
     import torch
     major, minor = (int(x) for x in torch.__version__.split(".")[:2])
@@ -837,29 +996,7 @@ def phase_timings(served, errs, launches):
     prefill = build_prefill_step(cfg, w)
     decode = build_decode_step(cfg)
     batch = {"tokens": served.prompts}
-    t_pre = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(served.params, batch)
-        torch.cuda.synchronize()
-        t_pre.append(time.perf_counter() - t0)
-    tok = logits.argmax(-1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(GEN):
-        logits, cache = decode(served.params, cache, tok)
-        tok = logits.argmax(-1)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    timings = {
-        "serve_run": {"prefill_ms": served.t_prefill * 1e3,
-                      "decode_ms_per_token": served.t_decode * 1e3 / GEN},
-        "warm": {"prefill_ms": sorted(t_pre)[1] * 1e3,
-                 "prefill_tok_per_s": BATCH * PROMPT / sorted(t_pre)[1],
-                 "decode_ms_per_token": t_dec * 1e3 / GEN,
-                 "decode_tok_per_s": BATCH * GEN / t_dec},
-    }
+    timings = _warm_serving(cfg, served)
     # one traced prefill, then four traced decode steps on a fresh cache
     timings["traced_prefill"] = _trace(lambda: prefill(served.params, batch), 1)
     logits, cache = prefill(served.params, batch)
@@ -888,7 +1025,7 @@ def _train_counters():
             "fused_xent": fused_xent}
 
 
-def phase_train():
+def phase_train(arch=ARCH):
     import torch
     from repro_torch.launch import train
 
@@ -897,7 +1034,7 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    argv = ["--arch", ARCH, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+    argv = ["--arch", arch, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
             "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--steps", str(TRAIN_STEPS), "--log-every", "1", "--device", DEVICE]
     out = train.main(argv)
@@ -908,14 +1045,14 @@ def phase_train():
     want = {"flash_attention": TRAIN_STEPS * n * (2 * layers - f),
             "flash_attention_bwd": TRAIN_STEPS * n * layers,
             "fused_xent": TRAIN_STEPS * n}
-    print(f"train launches: {launches} (the plan predicts {want}; L={layers}, fused body "
-          f"layers f={f}), peak memory {peak / 1e9:.2f} GB")
+    print(f"train launches ({arch}): {launches} (the plan predicts {want}; L={layers}, fused "
+          f"body layers f={f}), peak memory {peak / 1e9:.2f} GB")
     check(launches == want, f"training launches {launches} != the plan's {want}")
     check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
     return out, launches, peak
 
 
-def phase_repeated_batch(out):
+def phase_repeated_batch(out, arch=ARCH):
     """3 steps of a fresh state on one repeated batch: the loss falls. The
     middle step is traced. The learning rate is 1e-5, not the launcher's
     3e-4: Adam's first steps move every weight by about the learning rate
@@ -931,7 +1068,7 @@ def phase_repeated_batch(out):
 
     del out["state"]
     torch.cuda.empty_cache()
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
                           xent_chunk=min(256, TRAIN_SEQ), partition=out["plan"],
                           opt=OptConfig(lr=1e-5))
@@ -954,7 +1091,7 @@ def phase_repeated_batch(out):
     one()
     traced = _trace(one, 1)
     one()
-    print(f"repeated batch (lr 1e-5): losses {losses}, step s {times}")
+    print(f"repeated batch ({arch}, lr 1e-5): losses {losses}, step s {times}")
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"loss does not fall on a repeated batch: {losses}")
     del state
@@ -1000,7 +1137,7 @@ def _leaf_names(tree, prefix=""):
     return [prefix.lstrip(".")]
 
 
-def _ring_vs_single(dtype_label):
+def _ring_vs_single(dtype_label, arch=ARCH):
     """In bf16 also the ring's grads through the plain versions against the
     same oracle: the floor that the ring's own order of bf16 operations sets,
     printed beside the kernels' error (it gates nothing)."""
@@ -1012,7 +1149,7 @@ def _ring_vs_single(dtype_label):
     from repro_torch.optim.adam import tree_leaves
 
     dtype = getattr(torch, dtype_label)
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     # one layer per slot, so the check runs an F, the fused FB and a B slot
     plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(2))
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -1051,7 +1188,7 @@ def _ring_vs_single(dtype_label):
            "worst_leaves": {n: e for e, n in norms[:3]}}
     if floor is not None:
         out["plain_ring_worst_norm_rel"] = max(_rel(g, w) for g, w in zip(floor, want))
-    print(f"ring vs single program, {dtype_label}, full width, 2 layers, plan "
+    print(f"ring vs single program ({arch}), {dtype_label}, full width, 2 layers, plan "
           f"{plan.describe()}: loss {float(loss):.6f} vs {want_loss:.6f} (rel {rel_loss:.2e}), "
           f"worst relative grad error {worst:.3e} (max abs), {norms[0][0]:.3e} (norm, "
           f"{norms[0][1]}) over {len(got)} leaves; "
@@ -3064,6 +3201,180 @@ def phase_rotation_trace():
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the dense configs with head dims above 128
+# ---------------------------------------------------------------------------
+
+def phase_wide_serve(arch):
+    """Serve full-width ``arch`` (gemma-2b: 18 layers, d_head 256, MQA;
+    stablelm-12b: 40 layers, d_head 160) as ``phase_serve`` serves
+    qwen3-1.7b: launches, finite logits, decode against prefill (bf16 and
+    fp32 at 2 layers); then its warm prefill and decode steps and peak
+    memory."""
+    served, launches = phase_serve(arch)
+    from repro_torch.models.config import get_config
+    out = {"launches": launches, "peak_memory_gb": served.peak_memory_gb,
+           "decode_vs_prefill_rel": served.decode_vs_prefill_rel,
+           **_warm_serving(get_config(arch), served)}
+    print(f"wide serve ({arch}) " + json.dumps(out))
+    del served
+    return out
+
+
+def phase_wide_train():
+    """Train full-width gemma-2b one round through the launcher (``--mesh
+    1x4 --partition auto --batch 8 --seq 1024``, AdamW) with the plan's
+    launches, then 3 steps of a fresh state on a repeated batch (the middle
+    one traced): finite and falling losses, step ms and peak memory."""
+    import torch
+    out, launches, peak = phase_train(WIDE_ARCH)
+    losses, times, traced = phase_repeated_batch(out, WIDE_ARCH)
+    warm = sorted(out["step_s"][1:] + times)
+    report = {"launches": launches, "peak_memory_gb": peak / 1e9, "plan": out["plan"].describe(),
+              "train_run_step_ms": [x * 1e3 for x in out["step_s"]], "losses": out["losses"],
+              "repeated_batch_step_ms": [x * 1e3 for x in times],
+              "repeated_batch_losses": losses, "warm_step_ms_median": warm[len(warm) // 2] * 1e3,
+              "warm_tok_per_s": TRAIN_BATCH * TRAIN_SEQ / warm[len(warm) // 2],
+              "traced_step": traced}
+    del out
+    torch.cuda.empty_cache()
+    print(f"wide train ({WIDE_ARCH}) " + json.dumps(report))
+    return report
+
+
+def phase_wide_ring_vs_single():
+    """gemma-2b's ring grads (the d_head-256 kernels) against its single
+    program (the plain versions) at full width, 2 layers, fp32: loss rtol
+    1e-4, worst relative 5e-3."""
+    out = _ring_vs_single("float32", WIDE_ARCH)
+    check(out["loss_rel"] <= 1e-4, f"{WIDE_ARCH} ring loss disagrees with the single program")
+    check(out["worst_rel"] < 5e-3, f"{WIDE_ARCH} ring grads disagree with the single program")
+    return out
+
+
+def phase_wide_timings(errs, launches):
+    """The d_head-256 instances at gemma-2b's shapes, bf16, beside their
+    bounds, their plain versions and ``scaled_dot_product_attention``'s
+    forward, backward and decode (a yardstick only: the port never calls
+    it): the flash forward at its prefill (B=4, S=1024, H=8, KH=1), the
+    backward at one ring worker's training shape (B=2), flash-decode over
+    its full serving cache (S=1056). Rows of the ``kernels`` line, named
+    ``<kernel>@gemma-2b``; launches are those of the gemma-2b runs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    a = _attn(WIDE_ARCH)
+    h, kh, d = a["h"], a["kh"], a["d"]
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    bf16, elem = torch.bfloat16, 2
+    gqa = _sdpa_gqa()
+    kw = {"enable_gqa": True} if gqa else {}
+    rows = []
+
+    def widen(k, v):
+        return (k, v) if gqa else (k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
+
+    def row(kernel, source, replaces, shape, ms, plain_ms, lib, nbytes, flops):
+        name = f"{kernel}@{WIDE_ARCH}"
+        r = _row(name, source, replaces, launches,
+                 {name: errs[f"{kernel}@wide"], f"{name}@main": errs[f"{kernel}@{WIDE_ARCH}"]},
+                 ms, plain_ms, lib.get("library_ms"), nbytes, flops, "bfloat16")
+        r.update({"shape": shape, **{k: v for k, v in lib.items() if k != "library_ms"}})
+        rows.append(r)
+
+    def yardstick(fn, sets, reps, device):
+        """SDPA's times, or a note where it refuses the shape."""
+        try:
+            return {"library_ms": _time_ms(fn, sets, reps), **device()}
+        except RuntimeError as e:   # a yardstick only: the port never calls SDPA
+            return {"library_ms": None, "library_note": str(e).splitlines()[0][:200]}
+
+    # flash forward at the prefill shape
+    sets = [_flash_inputs(BATCH, PROMPT, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+    kern = lambda q, k, v: flash_attention(q, k, v, causal=True)   # noqa: E731
+    ms = _time_ms(kern, sets, 10)
+    device_ms = _graph_ms(kern, sets, 5)
+    plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True),
+                        sets[:2], 3)
+    lib_sets = []
+    for q, k, v in sets:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_sets.append((q, *widen(k, v)))
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)  # noqa: E731
+    lib = yardstick(sdpa, lib_sets, 10,
+                    lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 5)})
+    pairs = PROMPT * (PROMPT + 1) // 2
+    flops = 2 * BATCH * h * pairs * (d + d)
+    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:78",
+        f"B={BATCH}, S={PROMPT}, H={h}, KH={kh}, D={d}, causal, bf16", ms, plain_ms, lib,
+        (2 * BATCH * PROMPT * h * d + 2 * BATCH * PROMPT * kh * d) * elem, flops)
+    rows[-1].update({"device_ms": device_ms, "tflops": flops / (device_ms * 1e-3) / 1e12})
+    del sets, lib_sets
+
+    # flash backward at one worker's training shape
+    bw, s = TRAIN_BATCH // TRAIN_WORKERS, TRAIN_SEQ
+    sets = []
+    for _ in range(4):
+        q, k, v = _flash_inputs(bw, s, h, kh, d, d, bf16, "bshd", gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        sets.append((q, k, v, o, lse, _rand(o.shape, bf16, gen)))
+    ms = _time_ms(flash_attention_bwd, sets, 10)
+    device_ms = _graph_ms(flash_attention_bwd, sets, 5)
+    queued_ms = _queued_ms(flash_attention_bwd, sets, 10)
+    plain_ms = _time_ms(ref.flash_attention_bwd_ref, sets[:2], 3)
+    lib_sets = []
+    for q, k, v, o, lse, do in sets:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        lib_sets.append((qt, kt, vt, do.transpose(1, 2).contiguous()))
+
+    def sdpa_bwd(qt, kt, vt, dot):
+        with torch.enable_grad():
+            ot = F.scaled_dot_product_attention(qt, *widen(kt, vt), is_causal=True, **kw)
+        return torch.autograd.grad(ot, (qt, kt, vt), dot)
+
+    lib = yardstick(sdpa_bwd, lib_sets, 10,
+                    lambda: {"library_device_queued_ms": _queued_ms(sdpa_bwd, lib_sets, 10),
+                             "library_note": "SDPA's forward and backward together"})
+    pairs = s * (s + 1) // 2
+    flops = 5 * 2 * bw * h * pairs * d
+    row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none (the reference differentiates jnp chunked_attention, "
+        "src/repro/models/layers.py:76)", f"B={bw}, S={s}, H={h}, KH={kh}, D={d}, causal, bf16",
+        ms, plain_ms, lib, (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4,
+        flops)
+    rows[-1].update({"device_ms": device_ms, "device_queued_ms": queued_ms,
+                     "tflops": flops / (queued_ms * 1e-3) / 1e12})
+    del sets, lib_sets
+
+    # flash-decode over the full serving cache
+    w = PROMPT + GEN
+    nv = torch.full((BATCH,), w, dtype=torch.int32, device=DEVICE)
+    sets = [_decode_inputs(BATCH, w, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
+    kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
+    ms = _time_ms(kern, sets, 20)
+    device_ms = _graph_ms(kern, sets, 20)
+    plain_ms = _time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, nv), sets, 5)
+    lib_sets = [(q[:, :, None, :], *widen(k.transpose(1, 2).contiguous(),
+                                          v.transpose(1, 2).contiguous()))
+                for q, k, v in sets]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+    lib = yardstick(sdpa, lib_sets, 20,
+                    lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 20)})
+    row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:55",
+        f"B={BATCH}, S={w}, H={h}, KH={kh}, D={d}, n_valid {w}, bf16", ms, plain_ms, lib,
+        (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
+        2 * BATCH * h * w * (d + d))
+    rows[-1].update({"device_ms": device_ms, "device_kernels_ms": _kernel_ms(kern, sets, 10)})
+    del sets, lib_sets
+    torch.cuda.empty_cache()
+    print("wide kernel timings " + json.dumps(rows))
+    return rows
+
+
 TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
                                        "decode_combine_kernel"),
                   "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -3200,6 +3511,13 @@ def main() -> int:
     chaos = phase_chaos()
     supervised = phase_supervised_launcher()
     rotation = phase_rotation_trace()
+    wide = {arch: phase_wide_serve(arch) for arch in WIDE_SERVE_ARCHS}
+    wide["train"] = phase_wide_train()
+    wide["ring_vs_single"] = phase_wide_ring_vs_single()
+    wide_launches = {}                       # the d_head-256 instances: gemma-2b's runs
+    for run in (wide[WIDE_ARCH], wide["train"]):
+        for name, n in run["launches"].items():
+            wide_launches[f"{name}@{WIDE_ARCH}"] = wide_launches.get(f"{name}@{WIDE_ARCH}", 0) + n
     for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
     for q in [*quant.values(), *lora.values(), *chained.values(), chaos,
@@ -3211,6 +3529,7 @@ def main() -> int:
     rows += phase_train_timings(errs, launches)
     rows.append(phase_dequant_timings(errs, launches))
     rows += scan_rows
+    rows += phase_wide_timings(errs, wide_launches)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = sorted(out["step_s"][1:] + times)
     timings = {"train_run_step_ms": [x * 1e3 for x in out["step_s"]],
@@ -3237,6 +3556,7 @@ def main() -> int:
     print("supervisor timings " + json.dumps(
         {"chaos": chaos, "supervised_launcher": supervised, "rotation_traced_step": rotation,
          "dense_sync_one_round": {"traced_step": traced}}))
+    print("wide timings " + json.dumps(wide))
     print("phase seconds " + json.dumps(seconds))
     print(smi)
     print(json.dumps({"kernels": rows}))

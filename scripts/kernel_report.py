@@ -5,6 +5,7 @@ device time over split sizes.
 Run from the repository root on a machine with the CUDA toolkit and a card:
 
     python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep] [--train] [--scans]
+        [--attention]
 
 For each library NAME of ``repro_torch.kernels._build.KERNELS`` (default:
 ``decode_attention flash_attention``) it builds the library afresh, prints
@@ -17,8 +18,9 @@ the counts of the SASS opcodes that say how it moves data and multiplies:
 ``--dump DIR`` writes each library's whole ``cuobjdump -sass`` listing to
 ``DIR/NAME.sass``. ``--sweep`` times flash-decode (summed kernel durations in
 a ``torch.profiler`` trace) at the decode shapes of qwen3-1.7b (B=4, 1056
-slots, H=16, KH=8, D=128) and hymba-1.5b (B=4, ring of 1024, H=25, KH=5,
-D=64) over split sizes of 64-256 slots and over n_valid. ``--train`` times
+slots, H=16, KH=8, D=128), hymba-1.5b (B=4, ring of 1024, H=25, KH=5, D=64)
+and gemma-2b (B=4, 1056 slots, H=8, KH=1, D=256) over split sizes of 32-256
+slots and over n_valid. ``--train`` times
 the two training kernels and their library yardsticks at one ring worker's
 training shapes of qwen3-1.7b by device time (a replayed CUDA graph, calls
 queued behind a sleep kernel and the summed kernel durations of a
@@ -29,7 +31,13 @@ beside ``F.cross_entropy(x @ W^T, reduction="none")``. ``--scans`` times the
 two scans the same ways at the prefill and decode shapes of ``chip_smoke.py``:
 ``rwkv_scan`` at rwkv6-7b's (B=4, S=1024 or 1, H=64, N=64, fp32) and
 ``ssm_scan`` at hymba-1.5b's (B=4, S=1536 or 1, Di=3200, N=16, bf16 in, fp32
-y). Checks against the plain versions are ``chip_smoke.py``'s.
+y). ``--attention`` times the three attention kernels at their Dh <= 128
+main-path shapes (qwen3-1.7b's prefill B=4, S=1024, H=16, KH=8, D=128; its
+training backward at B=2; its decode over 1056 slots; hymba-1.5b's prefill
+with its window and its decode over the ring), bf16, the same ways: run it
+from a ``git archive`` of another commit (with this script copied into its
+``scripts/``) and from this tree in one call to compare two commits' kernels
+on one card. Checks against the plain versions are ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -73,11 +81,12 @@ def sweep_chunks():
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = mod.decode_plan
     out = {}
-    for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64)):
+    for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64),
+                                  ("gemma", 4, 1056, 8, 1, 256)):
         nv = torch.full((b,), s, dtype=torch.int32, device="cuda")
         sets = [tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                       for shape in ((b, h, d), (b, s, kh, d), (b, s, kh, d))) for _ in range(8)]
-        for chunk in (64, 128, 192, 256):
+        for chunk in (32, 64, 128, 192, 256):
             mod.decode_plan = lambda s_, b_, kh_, sms_, c=chunk: (-(-s_ // c), c)
             out[f"{label}_chunk{chunk}"] = _kernel_ms(
                 lambda q, k, v: mod.decode_attention(q, k, v, nv), sets, 10)
@@ -160,6 +169,38 @@ def scan_times():
     print("scan times " + json.dumps(out))
 
 
+def attention_times():
+    """Device ms per call of the flash forward, the flash backward and
+    flash-decode at the Dh <= 128 shapes of the main path (``chip_smoke.py``'s
+    inputs, cold sets)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    out = {}
+    for label, b, s, h, kh, d, window in (("qwen", 4, 1024, 16, 8, 128, None),
+                                          ("hymba", 4, 1536, 25, 5, 64, 1024)):
+        sets = [cs._flash_inputs(b, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+        out[f"flash_{label}"] = _device_times(
+            lambda q, k, v, w=window: flash_attention(q, k, v, causal=True, sliding_window=w),
+            sets)
+    sets = []
+    for _ in range(4):
+        q, k, v = cs._flash_inputs(2, 1024, 16, 8, 128, 128, bf16, "bshd", gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        sets.append((q, k, v, o, lse, cs._rand(o.shape, bf16, gen)))
+    out["flash_bwd_qwen"] = _device_times(flash_attention_bwd, sets)
+    del sets
+    for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64)):
+        nv = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        sets = [cs._decode_inputs(b, s, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
+        out[f"decode_{label}"] = _device_times(
+            lambda q, k, v, n=nv: decode_attention(q, k, v, n), sets)
+    print("attention times " + json.dumps(out))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("names", nargs="*", default=["decode_attention", "flash_attention"])
@@ -167,10 +208,11 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--scans", action="store_true")
+    ap.add_argument("--attention", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     report(args.names, args.dump)
-    if args.sweep or args.train or args.scans:
+    if args.sweep or args.train or args.scans or args.attention:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
@@ -180,6 +222,8 @@ def main() -> int:
         train_yardsticks()
     if args.scans:
         scan_times()
+    if args.attention:
+        attention_times()
     return 0
 
 

@@ -9,8 +9,9 @@
 // softmax is uniform over all S slots.
 //
 // What bounds it on an H100: each call reads the valid part of one layer's K
-// and V cache once (17 MB at B=4, S=1056, KH=8, D=128 in bf16) and does about
-// 2 FLOP per byte, so memory bandwidth bounds it (~5 us at 3.35 TB/s).
+// and V cache once (17 MB at B=4, S=1056, KH=8, D=128 in bf16; 4.3 MB at
+// gemma-2b's KH=1, D=256) and does about 2 FLOP per byte times the group, so
+// memory bandwidth bounds it (~5 us at 3.35 TB/s).
 //
 // Design (flash-decoding: the cache is split over blocks, then merged):
 //   * the grid is (KH, B, splits); a block takes one kv head of one batch row
@@ -28,11 +29,14 @@
 //     ldmatrix and V fragments by ldmatrix.trans, and the probabilities pass
 //     from the scores' accumulators to the second product in registers
 //     (rounded to bf16, as the flash forward does); one online-softmax update
-//     per 16 slots;
+//     per 16 slots. Above 128 dims (padded to 192 or 256) the q fragments are
+//     read from shared memory at each k-step rather than held (64 registers
+//     at 256), which leaves room for the 16 x 256 output (128);
 //   * fp32 runs scalar FMAs (decode_f32_kernel): a cache row is spread over
-//     the 32 lanes of a warp, 4 dims a lane; each warp scores its rows of a
-//     tile one at a time against the group's heads (up to 16) and makes one
-//     online-softmax update per row;
+//     the 32 lanes of a warp, 4 dims a lane (8 above 128 dims); each warp
+//     scores its rows of a tile one at a time against the group's heads (up
+//     to 16; above 128 dims up to 8 a block, the grid taking the group in
+//     passes of 8) and makes one online-softmax update per row;
 //   * the warps' (m, l, acc) merge through shared memory into one fp32
 //     partial per (b, head, split), in base 2; a second small kernel, launched
 //     by the same entry call, merges the splits. A split that starts at or
@@ -45,7 +49,7 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kDMax = 128;     // largest Dh and Dv taken
+constexpr int kDMax = 256;     // largest Dh and Dv taken
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGMax = 16;      // largest group of query heads per kv head
@@ -135,22 +139,29 @@ __device__ __forceinline__ void write_empty(float* part_ml, float* part_acc, int
 constexpr int kF32Rows = 16;                    // cache rows per tile
 constexpr int kF32WarpRows = kF32Rows / kWarps;  // rows of a tile per warp
 
-// Heads past the real group g score zeros and are never written. Each warp
-// keeps its own (m, l, acc): the workers that merge_workers joins.
+// kDCap: the dims a block holds, 128 or 256 (4 or 8 a lane); kG: the heads a
+// block scores, 16 or 8. blockIdx.x is kv head x pass: pass p takes heads
+// [p kG, p kG + kG) of the group. Heads past the real group score zeros and
+// are never written. Each warp keeps its own (m, l, acc): the workers that
+// merge_workers joins.
+template <int kDCap, int kG>
 __global__ void __launch_bounds__(kThreads)
 decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                   const float* __restrict__ vc, const int* __restrict__ n_valid,
                   float* __restrict__ part_ml, float* __restrict__ part_acc, int s, int h,
-                  int dh, int dv, int g, int splits, int chunk, int64_t q_sb, int64_t q_sh,
+                  int dh, int dv, int group, int splits, int chunk, int64_t q_sb, int64_t q_sh,
                   int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                   int64_t v_sh, float scale_log2) {
-  constexpr int kP = kDMax / 32;                 // dims per lane: one float4
-  static_assert(kP == 4, "a lane's dims are one float4");
+  constexpr int kP = kDCap / 32;                 // dims per lane: whole float4s
+  static_assert(kP % 4 == 0, "a lane's dims are whole float4s");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);      // [kStages][kF32Rows][kDMax]
-  float* vs = ks + kStages * kF32Rows * kDMax;         // [kStages][kF32Rows][kDMax]
+  float* ks = reinterpret_cast<float*>(smem_raw);      // [kStages][kF32Rows][kDCap]
+  float* vs = ks + kStages * kF32Rows * kDCap;         // [kStages][kF32Rows][kDCap]
 
-  const int khi = blockIdx.x;
+  const int passes = (group + kG - 1) / kG;
+  const int khi = blockIdx.x / passes;
+  const int g0 = (blockIdx.x % passes) * kG;     // first head of the group in this block
+  const int g = min(kG, group - g0);             // heads of this block
   const int bi = blockIdx.y;
   const int split = blockIdx.z;
   const int warp = threadIdx.x / 32;
@@ -161,7 +172,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const bool none_valid = n <= 0;
   n = none_valid ? s : min(n, s);
   const int end = min(s1, n);    // slots [s0, end) count in this split
-  const int64_t part0 = (static_cast<int64_t>(bi) * h + khi * g) * splits + split;
+  const int64_t part0 = (static_cast<int64_t>(bi) * h + khi * group + g0) * splits + split;
 
   if (end <= s0) {   // nothing to add
     write_empty(part_ml, part_acc, part0, g, dv, splits);
@@ -174,21 +185,21 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < ntiles) {
-      load_tile<float, kDMax, kF32Rows, kDMax>(ks + t * kF32Rows * kDMax,
-                                               vs + t * kF32Rows * kDMax, kbase, vbase,
+      load_tile<float, kDCap, kF32Rows, kDCap>(ks + t * kF32Rows * kDCap,
+                                               vs + t * kF32Rows * kDCap, kbase, vbase,
                                                s0 + t * kF32Rows, end, dh, dv, k_ss, v_ss);
     }
     hopper::cp_async_commit();
   }
 
   hopper::launch_dependents();
-  float qr[kGMax][kP];
-  float acc[kGMax][kP];
-  float m[kGMax];
-  float l[kGMax];
+  float qr[kG][kP];
+  float acc[kG][kP];
+  float m[kG];
+  float l[kG];
 #pragma unroll
-  for (int gi = 0; gi < kGMax; ++gi) {
-    const int64_t qoff = bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
+  for (int gi = 0; gi < kG; ++gi) {
+    const int64_t qoff = bi * q_sb + static_cast<int64_t>(khi * group + g0 + gi) * q_sh;
 #pragma unroll
     for (int e = 0; e < kP; ++e) {
       const int d = lane * kP + e;
@@ -203,25 +214,28 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
     const int ahead = t + kStages - 1;
     if (ahead < ntiles) {
       const int st = ahead % kStages;
-      load_tile<float, kDMax, kF32Rows, kDMax>(ks + st * kF32Rows * kDMax,
-                                               vs + st * kF32Rows * kDMax, kbase, vbase,
+      load_tile<float, kDCap, kF32Rows, kDCap>(ks + st * kF32Rows * kDCap,
+                                               vs + st * kF32Rows * kDCap, kbase, vbase,
                                                s0 + ahead * kF32Rows, end, dh, dv, k_ss, v_ss);
     }
     hopper::cp_async_commit();
     hopper::cp_async_wait<kStages - 1>();   // tile t has landed
     __syncthreads();
-    const float* kt = ks + (t % kStages) * kF32Rows * kDMax;
-    const float* vt = vs + (t % kStages) * kF32Rows * kDMax;
+    const float* kt = ks + (t % kStages) * kF32Rows * kDCap;
+    const float* vt = vs + (t % kStages) * kF32Rows * kDCap;
     for (int r = 0; r < kF32WarpRows; ++r) {
       const int row = warp * kF32WarpRows + r;
       if (s0 + t * kF32Rows + row >= end) break;   // the same for the whole warp
-      const float4 kv = *reinterpret_cast<const float4*>(kt + row * kDMax + lane * kP);
-      const float4 vv = *reinterpret_cast<const float4*>(vt + row * kDMax + lane * kP);
-      const float kf[kP] = {kv.x, kv.y, kv.z, kv.w};
-      const float vf[kP] = {vv.x, vv.y, vv.z, vv.w};
-      float sc[kGMax];
+      float kf[kP];
+      float vf[kP];
 #pragma unroll
-      for (int gi = 0; gi < kGMax; ++gi) {
+      for (int e = 0; e < kP; e += 4) {
+        Elem<float>::load_pack(kt + row * kDCap + lane * kP + e, kf + e);
+        Elem<float>::load_pack(vt + row * kDCap + lane * kP + e, vf + e);
+      }
+      float sc[kG];
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
         float dot = 0.f;
 #pragma unroll
         for (int e = 0; e < kP; ++e) dot = fmaf(qr[gi][e], kf[e], dot);
@@ -230,10 +244,10 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-        for (int gi = 0; gi < kGMax; ++gi) sc[gi] += __shfl_xor_sync(0xffffffffu, sc[gi], off);
+        for (int gi = 0; gi < kG; ++gi) sc[gi] += __shfl_xor_sync(0xffffffffu, sc[gi], off);
       }
 #pragma unroll
-      for (int gi = 0; gi < kGMax; ++gi) {
+      for (int gi = 0; gi < kG; ++gi) {
         const float x = none_valid ? kNegInf : sc[gi] * scale_log2;
         const float mx = fmaxf(m[gi], x);
         const float corr = hopper::exp2_approx(m[gi] - mx);
@@ -250,20 +264,20 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   __syncthreads();
 
   // Merge the warps' states through shared memory (the stages are free).
-  float* s_acc = reinterpret_cast<float*>(smem_raw);   // [kWarps][kGMax][kDMax]
-  float* s_m = s_acc + kWarps * kGMax * kDMax;         // [kWarps][kGMax]
-  float* s_l = s_m + kWarps * kGMax;
+  float* s_acc = reinterpret_cast<float*>(smem_raw);   // [kWarps][kG][kDCap]
+  float* s_m = s_acc + kWarps * kG * kDCap;            // [kWarps][kG]
+  float* s_l = s_m + kWarps * kG;
 #pragma unroll
-  for (int gi = 0; gi < kGMax; ++gi) {
+  for (int gi = 0; gi < kG; ++gi) {
 #pragma unroll
-    for (int e = 0; e < kP; ++e) s_acc[(warp * kGMax + gi) * kDMax + lane * kP + e] = acc[gi][e];
+    for (int e = 0; e < kP; ++e) s_acc[(warp * kG + gi) * kDCap + lane * kP + e] = acc[gi][e];
     if (lane == 0) {
-      s_m[warp * kGMax + gi] = m[gi];
-      s_l[warp * kGMax + gi] = l[gi];
+      s_m[warp * kG + gi] = m[gi];
+      s_l[warp * kG + gi] = l[gi];
     }
   }
   __syncthreads();
-  merge_workers<kWarps, kGMax, kDMax>(s_acc, s_m, s_l, part_ml, part_acc, part0, g, dv, splits);
+  merge_workers<kWarps, kG, kDCap>(s_acc, s_m, s_l, part_ml, part_acc, part0, g, dv, splits);
 }
 
 // ---------------------------------------------------------------------------
@@ -284,9 +298,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "r"(hopper::smem_addr(p)));
 }
 
-// kD: Dh and Dv padded to 64 or 128. Shared-memory rows are kD + 8 elements
-// apart (16 bytes of padding), so ldmatrix's eight row addresses fall on
-// distinct banks. Fragment layouts of m16n8k16 (PTX ISA), with gq = lane / 4
+// kD: Dh and Dv padded to 64, 128, 192 or 256. Shared-memory rows are kD + 8
+// elements apart (16 bytes of padding), so ldmatrix's eight row addresses
+// fall on distinct banks. Above 128 the q fragments come by ldmatrix from a
+// 16 x kD tile of q in shared memory at each k-step. Fragment layouts of m16n8k16 (PTX ISA), with gq = lane / 4
 // and t = lane % 4: C values {0,1,2,3} at (gq, 2t), (gq, 2t+1), (gq+8, 2t),
 // (gq+8, 2t+1); here a row is a head and a column a slot (scores) or a dim
 // (output).
@@ -301,9 +316,11 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   constexpr int kLd = kD + 8;
   constexpr int kSteps = kD / 16;     // k-steps of the scores
   constexpr int kDt = kD / 8;         // 8-dim tiles of the output
+  constexpr bool kQShared = kD > 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);       // [kStages][kMmaRows][kLd]
   bf16* vs = ks + kStages * kMmaRows * kLd;
+  bf16* qs = vs + kStages * kMmaRows * kLd;           // [16][kLd] when kQShared
 
   const int khi = blockIdx.x;
   const int bi = blockIdx.y;
@@ -316,18 +333,29 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int s1 = min(s0 + chunk, s);
   const bf16* kbase = kc + bi * k_sb + khi * k_sh;
   const bf16* vbase = vc + bi * v_sb + khi * v_sh;
-  // q as A fragments: rows = heads of the group (zero past g), k = dims
-  uint32_t qa[kSteps][4];
+  // q as A fragments: rows = heads of the group (zero past g), k = dims; held
+  // in registers, or (kQShared) as a 16 x kD tile read at each k-step
+  uint32_t qa[kQShared ? 1 : kSteps][4];
+  const bf16 zero = __float2bfloat16(0.f);
+  if constexpr (kQShared) {
+    for (int idx = threadIdx.x; idx < 16 * kD; idx += kThreads) {
+      const int gi = idx / kD;
+      const int c = idx - gi * kD;
+      qs[gi * kLd + c] = gi < g && c < dh
+                             ? q[bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh + c]
+                             : zero;
+    }
+  } else {
 #pragma unroll
-  for (int st = 0; st < kSteps; ++st) {
+    for (int st = 0; st < kSteps; ++st) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int gi = gq + (r & 1) * 8;
-      const int c = st * 16 + 2 * t4 + (r >= 2 ? 8 : 0);
-      const bf16* qrow = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
-      const bool in = gi < g;
-      const bf16 zero = __float2bfloat16(0.f);
-      qa[st][r] = pack2(in && c < dh ? qrow[c] : zero, in && c + 1 < dh ? qrow[c + 1] : zero);
+      for (int r = 0; r < 4; ++r) {
+        const int gi = gq + (r & 1) * 8;
+        const int c = st * 16 + 2 * t4 + (r >= 2 ? 8 : 0);
+        const bf16* qrow = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
+        const bool in = gi < g;
+        qa[st][r] = pack2(in && c < dh ? qrow[c] : zero, in && c + 1 < dh ? qrow[c + 1] : zero);
+      }
     }
   }
 
@@ -383,8 +411,14 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       for (int st = 0; st < kSteps; ++st) {
         uint32_t b[4];   // {b0, b1} of slots 0-7, then of slots 8-15
         ldmatrix_x4(b, kt + ((mi >> 1) * 8 + rr) * kLd + st * 16 + (mi & 1) * 8);
-        mma_bf16(sc[0], qa[st], b[0], b[1]);
-        mma_bf16(sc[1], qa[st], b[2], b[3]);
+        if constexpr (kQShared) {   // matrices (heads 0-7, 8-15) x (dims 0-7, 8-15)
+          ldmatrix_x4(qa[0], qs + (lane % 16) * kLd + st * 16 + (lane / 16) * 8);
+          mma_bf16(sc[0], qa[0], b[0], b[1]);
+          mma_bf16(sc[1], qa[0], b[2], b[3]);
+        } else {
+          mma_bf16(sc[0], qa[st], b[0], b[1]);
+          mma_bf16(sc[1], qa[st], b[2], b[3]);
+        }
       }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -464,25 +498,26 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 }
 
 // o[b, h] = sum over splits of acc 2^(m - M) / sum of l 2^(m - M), one block
-// per (b, h), one thread per output dim. Launched to overlap the split pass's
-// tail (programmatic dependent launch): it waits for the partials, then loads
-// each thread's first kPre partials at once, before the weights are known.
+// of kCT threads (128, or 256 above 128 dims) per (b, h), one thread per
+// output dim. Launched to overlap the split pass's tail (programmatic
+// dependent launch): it waits for the partials, then loads each thread's
+// first kPre partials at once, before the weights are known.
 constexpr int kPre = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int kCT>
+__global__ void __launch_bounds__(kCT)
 decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                       T* __restrict__ o, int h, int dv, int splits) {
   extern __shared__ float sm_ml[];    // [splits][2]: (m, l), then (m, weight)
   __shared__ float total[2];          // M, 1 / L
   hopper::grid_wait();
   const int64_t row = static_cast<int64_t>(blockIdx.y) * h + blockIdx.x;
-  const int d = threadIdx.x;          // dv <= kThreads
+  const int d = threadIdx.x;          // dv <= kCT
   const float* acc = part_acc + row * splits * dv + d;
   float pre[kPre];
 #pragma unroll
   for (int i = 0; i < kPre; ++i) pre[i] = d < dv && i < splits ? acc[i * dv] : 0.f;
-  for (int i = threadIdx.x; i < 2 * splits; i += kThreads) sm_ml[i] = part_ml[2 * row * splits + i];
+  for (int i = threadIdx.x; i < 2 * splits; i += kCT) sm_ml[i] = part_ml[2 * row * splits + i];
   __syncthreads();
   if (threadIdx.x < 32) {
     float mx = kNegInf;
@@ -501,7 +536,7 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
     }
   }
   __syncthreads();
-  for (int sp = threadIdx.x; sp < splits; sp += kThreads) {
+  for (int sp = threadIdx.x; sp < splits; sp += kCT) {
     sm_ml[2 * sp + 1] = hopper::exp2_approx(sm_ml[2 * sp] - total[0]) * total[1];
   }
   __syncthreads();
@@ -526,11 +561,11 @@ struct Args {
   float scale;
 };
 
-template <typename T>
+template <typename T, int kCT>
 int launch_combine(const Args& a, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.h, a.b);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(kCT);
   cfg.dynamicSmemBytes = 2 * a.splits * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -538,30 +573,42 @@ int launch_combine(const Args& a, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>, a.part_ml,
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, kCT>, a.part_ml,
                                              a.part_acc, static_cast<T*>(a.o), a.h, a.dv,
                                              a.splits));
 }
 
+template <int kCT>
+int combine(const Args& a, int dtype, cudaStream_t stream) {
+  return dtype == kFloat32 ? launch_combine<float, kCT>(a, stream)
+                           : launch_combine<bf16, kCT>(a, stream);
+}
+
+// fp32 at head-dim capacity kDCap (128: 16 heads a block; 256: 8).
+template <int kDCap>
 int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr size_t kTiles = 2ull * kStages * kF32Rows * kDMax * sizeof(float);
-  constexpr size_t kMerge = (static_cast<size_t>(kWarps) * kGMax * kDMax + 2 * kWarps * kGMax) * 4;
+  constexpr int kG = kDCap > 128 ? 8 : kGMax;
+  constexpr size_t kTiles = 2ull * kStages * kF32Rows * kDCap * sizeof(float);
+  constexpr size_t kMerge = (static_cast<size_t>(kWarps) * kG * kDCap + 2 * kWarps * kG) * 4;
   constexpr size_t kSmem = kTiles > kMerge ? kTiles : kMerge;
+  auto kernel = decode_f32_kernel<kDCap, kG>;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      decode_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  decode_f32_kernel<<<dim3(a.kh, a.b, a.splits), kThreads, kSmem, stream>>>(
+  const int passes = (a.h / a.kh + kG - 1) / kG;
+  kernel<<<dim3(a.kh * passes, a.b, a.splits), kThreads, kSmem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.n_valid, a.part_ml, a.part_acc, a.s, a.h, a.dh, a.dv,
       a.h / a.kh, a.splits, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
       a.v_sh, a.scale * kLog2e);
   const cudaError_t err = cudaGetLastError();
-  return err != cudaSuccess ? static_cast<int>(err) : launch_combine<float>(a, stream);
+  return err != cudaSuccess ? static_cast<int>(err) : combine<kDCap>(a, kFloat32, stream);
 }
 
 template <int kD>
 int launch_bf16(const Args& a, cudaStream_t stream) {
-  constexpr size_t kTiles = 2ull * kStages * kMmaRows * (kD + 8) * sizeof(bf16);
+  constexpr size_t kTiles = (2ull * kStages * kMmaRows + (kD > 128 ? 16 : 0)) * (kD + 8) *
+                            sizeof(bf16);
   constexpr size_t kMerge = (static_cast<size_t>(kWarps) * 16 * kD + 2 * kWarps * 16) * 4;
   constexpr size_t kSmem = kTiles > kMerge ? kTiles : kMerge;
   auto kernel = decode_mma_kernel<kD>;
@@ -574,7 +621,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
       a.h / a.kh, a.splits, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
       a.v_sh, a.scale * kLog2e);
   const cudaError_t err = cudaGetLastError();
-  return err != cudaSuccess ? static_cast<int>(err) : launch_combine<bf16>(a, stream);
+  return err != cudaSuccess ? static_cast<int>(err)
+                            : combine<(kD > 128 ? 256 : kThreads)>(a, kBFloat16, stream);
 }
 
 }  // namespace
@@ -585,7 +633,7 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
 // last dimension of q and the caches is dense; the caches' base addresses and
 // strides are multiples of 16 bytes; n_valid is a device array of B
 // int32; o is a dense (B,H,Dv) tensor; scratch is fp32 of B*H*splits*(Dv+2)
-// elements; splits * chunk >= S. The caller guarantees 1 <= Dh, Dv <= 128,
+// elements; splits * chunk >= S. The caller guarantees 1 <= Dh, Dv <= 256,
 // H % KH == 0 and H / KH <= 16.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                     const void* n_valid, void* o, void* scratch, int b, int s,
@@ -603,7 +651,13 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, con
   Args a{q, k, v, static_cast<const int*>(n_valid), o, part_ml,
          part_ml + 2ll * b * h * splits, b, s, h, kh, dh, dv, splits, chunk, q_sb, q_sh,
          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
-  if (dtype == kFloat32) return launch_f32(a, st);
-  if (dtype == kBFloat16) return dh > 64 || dv > 64 ? launch_bf16<128>(a, st) : launch_bf16<64>(a, st);
+  const int dmax = dh > dv ? dh : dv;
+  if (dtype == kFloat32) return dmax > 128 ? launch_f32<256>(a, st) : launch_f32<128>(a, st);
+  if (dtype == kBFloat16) {
+    return dmax > 192   ? launch_bf16<256>(a, st)
+           : dmax > 128 ? launch_bf16<192>(a, st)
+           : dmax > 64  ? launch_bf16<128>(a, st)
+                        : launch_bf16<64>(a, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,8 @@
 // What bounds it on an H100: at the serving shapes (B=4, S=1024, H=16, KH=8,
 // D=128, causal, bf16) the function does ~17 GFLOP against ~50 MB of input
 // and output, so the card's tensor-core rate bounds it (~17 us at 989
-// TFLOP/s), not memory.
+// TFLOP/s), not memory. gemma-2b's prefill (H=8, KH=1, D=256) does the same
+// operations against less memory.
 //
 // Design, common to both element types:
 //   * the TPU kernel's sequential kv grid axis becomes a loop inside the
@@ -25,24 +26,28 @@
 // per SM walks the query tiles; a producer warp streams K and V tiles by TMA
 // through a ring of mbarrier-guarded stages, and two consumer warpgroups of
 // 64 query rows each run both products as wgmma, the probabilities passed
-// from registers to the second product.
+// from registers to the second product. Head dims above 128 (padded to 192
+// or 256) take kv tiles of 64 rows, not 128: two stages of K and V then fit
+// beside Q in 227 KB (192 KB at 256), and the scores (32 fp32 values a
+// thread) leave room for the 64 x 256 output accumulator (128).
 // fp32 takes scalar FMAs (one block per 64-row query tile): 4 threads share a
 // query row, each holding a quarter of the row's q and accumulator, reading
 // each kv row as 16-byte packs that a warp's 8 rows share (broadcasts, no
-// conflicts).
+// conflicts); above 128 dims the block's kv tiles hold 16 rows, not 32, so
+// the two stay within 48 KB of static shared memory.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kDMax = 128;                       // largest Dh and Dv taken
+constexpr int kDMax = 256;                       // largest Dh and Dv taken
 constexpr int kBlockQ = 64;                      // query rows per block
 constexpr int kRowThreads = 4;                   // threads sharing a query row
 constexpr int kThreads = kBlockQ * kRowThreads;  // 256
 constexpr int kSub = 16;                         // kv columns per softmax update
 
-template <typename T, int kBlockK>
+template <typename T, int kBlockK, int kDCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int sq, int skv, int h, int kh,
@@ -52,11 +57,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  int window, float scale) {
   using E = Elem<T>;
   constexpr int kPack = E::kPack;
-  constexpr int kChunks = kDMax / (kRowThreads * kPack);  // packs per thread at kDMax
-  constexpr int kPer = kChunks * kPack;                   // = kDMax / 4 values per thread
+  constexpr int kChunks = kDCap / (kRowThreads * kPack);  // packs per thread at kDCap
+  constexpr int kPer = kChunks * kPack;                   // = kDCap / 4 values per thread
 
-  __shared__ __align__(16) T ks[kBlockK][kDMax];
-  __shared__ __align__(16) T vs[kBlockK][kDMax];
+  __shared__ __align__(16) T ks[kBlockK][kDCap];
+  __shared__ __align__(16) T vs[kBlockK][kDCap];
 
   const int qt = blockIdx.x;
   const int hi = blockIdx.y;
@@ -177,7 +182,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int kBlockK>
+template <typename T, int kBlockK, int kDCap>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
            int skv,
            int h, int kh, int dh, int dv, long long q_sb, long long q_ss, long long q_sh,
@@ -187,7 +192,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const int dmax = dh > dv ? dh : dv;
   const int dp = (dmax + kQuad - 1) / kQuad * kQuad;
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
-  flash_fwd_kernel<T, kBlockK><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<T, kBlockK, kDCap><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, sq, skv, h, kh, dh, dv, dp, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
       v_sb, v_ss, v_sh, causal, window, scale);
@@ -199,19 +204,19 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // ---------------------------------------------------------------------------
 
 constexpr int kFaBlockM = 128;    // query rows per block: two consumer warpgroups of 64
-constexpr int kFaBlockN = 128;    // kv rows per tile
 constexpr int kFaStages = 2;      // K/V tiles in the ring
 constexpr int kFaThreads = 384;   // one producer warpgroup, two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Every sub-tile is rows x 64 bf16 (128-byte rows, the 128-byte swizzle's
-// width) and starts 1024-byte aligned, as the wgmma descriptors assume.
-template <int kD>
+// width) and starts 1024-byte aligned, as the wgmma descriptors assume. kBN
+// kv rows a tile: 128, or 64 above 128 dims.
+template <int kD, int kBN>
 struct alignas(1024) FaShared {
-  bf16 q[2][kD / 64][64 * 64];                  // [warpgroup][d chunk][64 rows x 64]
-  bf16 k[kFaStages][kD / 64][kFaBlockN * 64];   // [stage][d chunk][kv rows x 64]
-  bf16 v[kFaStages][kD / 64][kFaBlockN * 64];
+  bf16 q[2][kD / 64][64 * 64];            // [warpgroup][d chunk][64 rows x 64]
+  bf16 k[kFaStages][kD / 64][kBN * 64];   // [stage][d chunk][kv rows x 64]
+  bf16 v[kFaStages][kD / 64][kBN * 64];
   uint64_t q_full;
   uint64_t q_empty;              // both consumers have their last scores of the tile
   uint64_t k_full[kFaStages];
@@ -227,6 +232,7 @@ struct FaWork {
 
 // Work item `item` of nqt * h * b: query tiles last (heaviest, when causal)
 // first, heads innermost so that blocks at work together share kv heads.
+template <int kBN>
 __device__ __forceinline__ FaWork fa_work(int item, int nqt, int h, int b, int skv,
                                           int causal, int window) {
   FaWork w;
@@ -237,8 +243,8 @@ __device__ __forceinline__ FaWork fa_work(int item, int nqt, int h, int b, int s
   int kv_end = skv;
   if (causal) kv_end = min(skv, w.q0 + kFaBlockM);
   if (window > 0) kv_begin = max(0, w.q0 - window + 1);
-  w.first = kv_begin / kFaBlockN;
-  w.ntiles = kv_end > kv_begin ? (kv_end + kFaBlockN - 1) / kFaBlockN - w.first : 0;
+  w.first = kv_begin / kBN;
+  w.ntiles = kv_end > kv_begin ? (kv_end + kBN - 1) / kBN - w.first : 0;
   return w;
 }
 
@@ -261,10 +267,11 @@ __device__ __forceinline__ int fa_item(int round) {
 // transposed (MN-major) from shared memory; the scores of one kv tile and P V
 // of the one before are in flight together. K and V stages are freed
 // separately (K once its scores are in, V once its product is), so the
-// producer runs two kv tiles ahead. kD is the head dim padded to 64 or 128;
-// TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on kv
-// tiles that a diagonal, a window edge or the ragged end cuts.
-template <int kD>
+// producer runs two kv tiles ahead. kD is the head dim padded to 64, 128,
+// 192 or 256, kBN the kv rows of a tile (128, or 64 above 128 dims); TMA
+// zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on kv tiles
+// that a diagonal, a window edge or the ragged end cuts.
+template <int kD, int kBN>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -274,9 +281,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kChunks = kD / 64;
   constexpr int kSteps = kD / 16;                      // k-steps of S = Q K^T
   constexpr uint32_t kQBytes = 2 * kChunks * 64 * 128;
-  constexpr uint32_t kKvBytes = kChunks * kFaBlockN * 128;
+  constexpr uint32_t kKvBytes = kChunks * kBN * 128;
   extern __shared__ unsigned char smem_raw[];
-  FaShared<kD>& sm = *reinterpret_cast<FaShared<kD>*>(
+  FaShared<kD, kBN>& sm = *reinterpret_cast<FaShared<kD, kBN>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int items = nqt * h * b;
   const int group = h / kh;
@@ -306,7 +313,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int round = 0; round * static_cast<int>(gridDim.x) < items; ++round) {
         const int item = fa_item(round);
         if (item >= items) continue;
-        const FaWork w = fa_work(item, nqt, h, b, skv, causal, window);
+        const FaWork w = fa_work<kBN>(item, nqt, h, b, skv, causal, window);
         const int kvh = w.hi / group;
         hopper::mbar_wait(&sm.q_empty, (n & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&sm.q_full, kQBytes);
@@ -319,7 +326,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int it = 0; it < w.ntiles; ++it, ++tile) {
           const int st = tile % kFaStages;
           const uint32_t phase = (tile / kFaStages) & 1;
-          const int kv0 = (w.first + it) * kFaBlockN;
+          const int kv0 = (w.first + it) * kBN;
           hopper::mbar_wait(&sm.k_empty[st], phase ^ 1);
           hopper::mbar_arrive_expect_tx(&sm.k_full[st], kKvBytes);
           for (int c = 0; c < kChunks; ++c) {
@@ -342,8 +349,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = t % 32;
     const int quad = lane % 4;
     float acc[kD / 2];                                  // O: 64 x kD over the warpgroup
-    float s[kFaBlockN / 2];                             // S: 64 x 128 over the warpgroup
-    uint32_t pa[kFaBlockN / 16][4];                     // P of the previous tile, bf16
+    float s[kBN / 2];                                   // S: 64 x kBN over the warpgroup
+    uint32_t pa[kBN / 16][4];                           // P of the previous tile, bf16
     float m[2];
     float l[2];    // this thread's share of each row's sum
     float corr[2];
@@ -351,7 +358,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     int rows[2] = {0, 0};
     int tile = 0;  // kv tiles consumed before the current query tile
 #pragma unroll
-    for (int i = 0; i < kFaBlockN / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
 
     // S = Q K^T of kv tile `it` into s (issued, not waited for)
     auto issue_scores = [&](int it) {
@@ -361,7 +368,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < kSteps; ++kk) {
         const uint64_t da = hopper::sw128_desc(&sm.q[wg][kk / 4][(kk % 4) * 16], 16, 1024);
         const uint64_t db = hopper::sw128_desc(&sm.k[st][kk / 4][(kk % 4) * 16], 16, 1024);
-        hopper::wgmma_ss_m64n128k16(s, da, db, kk > 0);
+        if constexpr (kBN == 128) {
+          hopper::wgmma_ss_m64n128k16(s, da, db, kk > 0);
+        } else {
+          hopper::wgmma_ss_m64n64k16<0, 0>(s, da, db, kk > 0);
+        }
       }
       hopper::wgmma_commit();
     };
@@ -370,15 +381,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int st = (tile + it) % kFaStages;
       hopper::mbar_wait(&sm.v_full[st], ((tile + it) / kFaStages) & 1);
 #pragma unroll
-      for (int kk = 0; kk < kFaBlockN / 16; ++kk) {
-        // 16 kv rows of V (2048 bytes) per k-step; the d chunks lie kFaBlockN x 128 B apart
-        const uint64_t db =
-            hopper::sw128_desc(&sm.v[st][0][kk * 16 * 64], kFaBlockN * 128, 1024);
-        if constexpr (kD == 128) {
-          hopper::wgmma_rs_m64n128k16(acc, pa[kk], db);
-        } else {
-          hopper::wgmma_rs_m64n64k16(acc, pa[kk], db);
-        }
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        // 16 kv rows of V (2048 bytes) per k-step; the d chunks lie kBN x 128 B apart
+        hopper::wgmma_rs_over_d<kD>(acc, pa[kk], [&](int c) {
+          return hopper::sw128_desc(&sm.v[st][c][kk * 16 * 64], kBN * 128, 1024);
+        });
       }
       hopper::wgmma_commit();
     };
@@ -386,12 +393,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // (fp32), m and l move on, corr is the factor the output has to take.
     auto softmax = [&](int kv0) {
       // scores in base 2; masks only where this tile cuts them for our rows
-      const bool cut = kv0 + kFaBlockN > skv || (causal && kv0 + kFaBlockN - 1 > r0) ||
+      const bool cut = kv0 + kBN > skv || (causal && kv0 + kBN - 1 > r0) ||
                        (window > 0 && kv0 <= r0 + 63 - window);
       float mx[2] = {m[0], m[1]};
       if (cut) {
 #pragma unroll
-        for (int i = 0; i < kFaBlockN / 2; ++i) {
+        for (int i = 0; i < kBN / 2; ++i) {
           const int kv = kv0 + (i >> 2) * 8 + 2 * quad + (i & 1);
           const int qpos = rows[(i >> 1) & 1];
           const bool live = (kv < skv) & (!causal | (kv <= qpos)) &
@@ -401,7 +408,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < kFaBlockN / 2; ++i) {
+        for (int i = 0; i < kBN / 2; ++i) {
           s[i] *= scale_log2;
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
         }
@@ -415,14 +422,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l[r] *= corr[r];
       }
 #pragma unroll
-      for (int i = 0; i < kFaBlockN / 2; ++i) {
+      for (int i = 0; i < kBN / 2; ++i) {
         s[i] = hopper::exp2_approx(s[i] - m[(i >> 1) & 1]);
         l[(i >> 1) & 1] += s[i];
       }
     };
     auto pack_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < kFaBlockN / 16; ++kk) {
+      for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) pa[kk][j] = pack2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
       }
@@ -432,7 +439,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int round = 0; round * static_cast<int>(gridDim.x) < items; ++round) {
       const int item = fa_item(round);
       if (item >= items) continue;
-      const FaWork w = fa_work(item, nqt, h, b, skv, causal, window);
+      const FaWork w = fa_work<kBN>(item, nqt, h, b, skv, causal, window);
       r0 = w.q0 + wg * 64;
       rows[0] = r0 + (t / 32) * 16 + lane / 4;
       rows[1] = rows[0] + 8;
@@ -454,7 +461,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::fence_regs(s);
         hopper::mbar_arrive(&sm.k_empty[tile % kFaStages]);
         if (w.ntiles == 1) hopper::mbar_arrive(&sm.q_empty);
-        softmax(w.first * kFaBlockN);
+        softmax(w.first * kBN);
         pack_p();
       }
       for (int it = 1; it < w.ntiles; ++it) {
@@ -467,7 +474,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::fence_regs(s);
         hopper::mbar_arrive(&sm.k_empty[(tile + it) % kFaStages]);
         if (it == w.ntiles - 1) hopper::mbar_arrive(&sm.q_empty);
-        softmax((w.first + it) * kFaBlockN);
+        softmax((w.first + it) * kBN);
         hopper::wgmma_wait<0>();   // P V of kv tile it - 1
         hopper::fence_regs(acc);
         hopper::keep_regs(pa);
@@ -516,7 +523,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int kD>
+template <int kD, int kBN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                  int sq, int skv, int h, int kh, int dh, int dv, long long q_sb, long long q_ss,
                  long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -524,12 +531,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
                  float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, q_sb, q_ss, q_sh, 64) ||
-      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, k_sb, k_ss, k_sh, kFaBlockN) ||
-      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, v_sb, v_ss, v_sh, kFaBlockN)) {
+      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, k_sb, k_ss, k_sh, kBN) ||
+      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, v_sb, v_ss, v_sh, kBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int kSmem = static_cast<int>(sizeof(FaShared<kD>)) + 1024;
-  auto kernel = flash_fwd_wgmma_kernel<kD>;
+  constexpr int kSmem = static_cast<int>(sizeof(FaShared<kD, kBN>)) + 1024;
+  auto kernel = flash_fwd_wgmma_kernel<kD, kBN>;
   static const cudaError_t opt_in =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
@@ -558,7 +565,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
 // call returns cudaErrorInvalidValue without a launch. lse, when not null, is a dense fp32 (B,H,Sq) tensor that
 // receives each row's log-sum-exp of its scaled scores (what the backward
 // kernel recomputes the probabilities from); serving passes null. window <= 0
-// means no sliding window. The caller guarantees 1 <= Dh, Dv <= 128 and
+// means no sliding window. The caller guarantees 1 <= Dh, Dv <= 256 and
 // H % KH == 0.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, void* lse, int b, int sq, int skv, int h, int kh, int dh,
@@ -571,15 +578,21 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // fp32: 32 KB of static shared memory per block (2 tiles x 32 x 128 x 4 B).
-  // bf16: 160 KB (Dh, Dv <= 128) or 80 KB (<= 64) of dynamic shared memory.
+  // fp32: 32 KB of static shared memory per block (2 tiles x 32 x 128 x 4 B,
+  // or 2 x 16 x 256 x 4 B above 128 dims).
+  // bf16, dynamic shared memory: 80 KB (Dh, Dv <= 64), 160 KB (<= 128), 144 KB
+  // (<= 192) or 192 KB (<= 256), the last two with kv tiles of 64 rows.
+  const int dmax = dh > dv ? dh : dv;
   if (dtype == kFloat32) {
-    return launch<float, 32>(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv,
-                             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
-                             window, scale, st);
+    auto run = dmax > 128 ? launch<float, 16, 256> : launch<float, 32, 128>;
+    return run(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss,
+               q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
   }
   if (dtype == kBFloat16) {
-    auto run = (dh > 64 || dv > 64) ? launch_wgmma<128> : launch_wgmma<64>;
+    auto run = dmax > 192   ? launch_wgmma<256, 64>
+               : dmax > 128 ? launch_wgmma<192, 64>
+               : dmax > 64  ? launch_wgmma<128, 128>
+                            : launch_wgmma<64, 128>;
     return run(q, k, v, o, static_cast<float*>(lse), b, sq, skv, h, kh, dh, dv, q_sb, q_ss,
                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, scale, st);
   }

@@ -37,15 +37,23 @@
 // dQ = dS K, each warpgroup taking 64 of dQ's columns. dQ's partial goes to
 // the fp32 buffer as one bulk reduce-add of 16 KB per warpgroup and tile (TMA
 // unit, atomic per element, so the summation order varies between runs).
+// Head dims above 128 (padded to 192 or 256) do not fit that shape: dK and
+// dV of 64 kv rows over 256 dims are 256 fp32 registers a thread, and K, V
+// and two stages of Q and dO 256 KB. There a block owns 64 kv rows; both
+// consumer warpgroups form the same S^T and dP^T (those two products are
+// done twice), and each keeps dK and dV for its half of the 64-wide d chunks
+// (128 values a thread at 256) and forms dQ for the same chunks, added to
+// the buffer by fp32 atomics from registers (no shared staging: 208 KB of
+// tiles leave no room for it).
 // fp32 takes scalar FMAs (one block per 32-row kv tile, tiles held in shared
-// memory, dQ by atomicAdd); no training path runs it.
+// memory, dQ by atomicAdd); only fp32 training runs it.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kDMax = 128;            // largest Dh and Dv taken
+constexpr int kDMax = 256;            // largest Dh and Dv taken
 constexpr int kTileQ = 64;            // rows per query tile; the padding of lse and D
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -93,12 +101,15 @@ constexpr int kBq = 32;               // query rows per tile
 constexpr int kBk = 32;               // kv rows per block
 constexpr int kThreads = 256;
 constexpr int kLanes = kThreads / kBq;  // 8 threads share a row
-constexpr int kPer = kDMax / kLanes;    // 16 head dims per thread
-constexpr int kLd = kDMax + 1;          // fp32 smem row stride of q/k/v/dO tiles
 constexpr int kPLd = kBk + 1;           // fp32 smem row stride of P and dS
-constexpr size_t kSmemBytes =
-    sizeof(float) * (2 * kBk * kLd + 2 * kBq * kLd + 2 * kBq * kPLd + 2 * kBq);
 
+// Shared bytes at head-dim capacity kDCap (128 or 256): 73 KB or 137 KB.
+template <int kDCap>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * (2 * kBk * (kDCap + 1) + 2 * kBq * (kDCap + 1) + 2 * kBq * kPLd + 2 * kBq);
+}
+
+template <int kDCap>
 __global__ void __launch_bounds__(kThreads)
 bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
@@ -108,6 +119,8 @@ bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t d_sb, int64_t d_ss,
                int64_t d_sh, int causal, int window, float scale) {
+  constexpr int kPer = kDCap / kLanes;    // head dims per thread
+  constexpr int kLd = kDCap + 1;          // fp32 smem row stride of q/k/v/dO tiles
   extern __shared__ float smem[];
   float* ks = smem;                 // [kBk][kLd]
   float* vs = ks + kBk * kLd;       // [kBk][kLd]
@@ -270,20 +283,29 @@ __global__ void cast_f32_kernel(const float* __restrict__ src, float* __restrict
 // bf16: TMA-fed tiles and warpgroup products (FlashAttention-3's backward)
 // ---------------------------------------------------------------------------
 
-constexpr int kBwN = 128;        // kv rows per block: two consumer warpgroups of 64
 constexpr int kBwStages = 2;     // Q/dO tiles in the ring
 constexpr int kBwThreads = 384;  // one producer warpgroup, two consumer warpgroups
+
+// kv rows of a block at padded head dim kD: two warpgroups of 64, or one set
+// of 64 that both share above 128 dims.
+template <int kD>
+__host__ __device__ constexpr int bw_rows() {
+  return kD > 128 ? 64 : 128;
+}
 
 // Every bf16 sub-tile is rows x 64 (128-byte rows, the 128-byte swizzle's
 // width) and starts 1024-byte aligned, as the wgmma descriptors assume.
 template <int kD>
 struct alignas(1024) BwShared {
-  bf16 k[kD / 64][kBwN * 64];                     // [d chunk][kv rows x 64]
-  bf16 v[kD / 64][kBwN * 64];
+  static constexpr int kBN = bw_rows<kD>();
+  static constexpr int kDqBufs = kD > 128 ? 1 : 2;        // above 128: dQ by atomics, unused
+  static constexpr int kDqLen = kD > 128 ? 4 : kTileQ * 64;
+  bf16 k[kD / 64][kBN * 64];                      // [d chunk][kv rows x 64]
+  bf16 v[kD / 64][kBN * 64];
   bf16 q[kBwStages][kD / 64][kTileQ * 64];        // [stage][d chunk][q rows x 64]
   bf16 dout[kBwStages][kD / 64][kTileQ * 64];
-  bf16 ds[2][kBwN * kTileQ];                      // dS^T [kv][q], swizzled, double-buffered
-  float dq[2][kTileQ * 64];                       // [warpgroup] dQ partial, swizzled
+  bf16 ds[2][kBN * kTileQ];                       // dS^T [kv][q], swizzled, double-buffered
+  float dq[kDqBufs][kDqLen];                      // [warpgroup] dQ partial, swizzled
   float lse[kBwStages][kTileQ];                   // log2(e) * lse of the tile's rows
   float dsum[kBwStages][kTileQ];
   uint64_t kv_full;
@@ -301,22 +323,23 @@ __device__ __forceinline__ void store2(bf16* row, int d, int n, float a0, float 
   }
 }
 
-// One 128-row kv tile of one (kv head, batch), and the query tiles that see it.
+// One kBN-row kv tile of one (kv head, batch), and the query tiles that see it.
 struct BwWork {
   int kv0, kvh, bi, qt0, nq;
 };
 
 // Work item `item`: kv tiles first in the causal order (tile 0 sees every
 // query tile, so the longest items start first), kv heads innermost.
+template <int kBN>
 __device__ __forceinline__ BwWork bw_work(int item, int kh, int b, int sq, int causal,
                                           int window) {
   BwWork w;
-  w.kv0 = (item / (kh * b)) * kBwN;
+  w.kv0 = (item / (kh * b)) * kBN;
   w.kvh = item % kh;
   w.bi = (item / kh) % b;
   const int q_begin = causal ? w.kv0 : 0;
   int q_end = sq;
-  if (window > 0) q_end = min(sq, w.kv0 + kBwN - 1 + window);
+  if (window > 0) q_end = min(sq, w.kv0 + kBN - 1 + window);
   w.qt0 = q_begin / kTileQ;
   w.nq = q_end > q_begin ? (q_end + kTileQ - 1) / kTileQ - w.qt0 : 0;
   return w;
@@ -327,10 +350,13 @@ __device__ __forceinline__ BwWork bw_work(int item, int kh, int b, int sq, int c
 // (query head, query tile) with their lse and D through a 2-stage ring, each
 // stage guarded by a full (bytes landed) and an empty (both consumers done)
 // mbarrier. Warpgroups 1 and 2 each own 64 kv rows and keep dK and dV in
-// fp32 registers over the whole item. kD is the head dim padded to 64 or 128;
-// TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on
-// tiles that a diagonal, a window edge or a ragged end cuts. At kD = 64 the
-// first warpgroup alone computes dQ (64 columns).
+// fp32 registers over the whole item. kD is the head dim padded to 64, 128,
+// 192 or 256; TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied
+// only on tiles that a diagonal, a window edge or a ragged end cuts. At kD =
+// 64 the first warpgroup alone computes dQ (64 columns). Above 128 (kWide)
+// the block holds 64 kv rows that both warpgroups score; warpgroup wg owns
+// the d chunks [wg * kOwn, (wg + 1) * kOwn) of dK, dV and dQ (at 192 the
+// second owns one chunk, the first two).
 template <int kD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -343,13 +369,16 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int kh, int dh, int dv, int causal, int window, float scale,
                        float scale_log2) {
   constexpr int kChunks = kD / 64;
-  constexpr uint32_t kKvBytes = 2 * kChunks * kBwN * 128;
+  constexpr bool kWide = kD > 128;
+  constexpr int kBN = bw_rows<kD>();
+  constexpr int kOwn = kWide ? 2 : kChunks;    // d chunks of dK and dV a warpgroup keeps
+  constexpr uint32_t kKvBytes = 2 * kChunks * kBN * 128;
   constexpr uint32_t kStageBytes = 2 * kChunks * kTileQ * 128 + 2 * kTileQ * 4;
   extern __shared__ unsigned char smem_raw[];
   BwShared<kD>& sm = *reinterpret_cast<BwShared<kD>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int group = h / kh;
-  const BwWork w = bw_work(blockIdx.x, kh, b, sq, causal, window);
+  const BwWork w = bw_work<kBN>(blockIdx.x, kh, b, sq, causal, window);
   const int iters = group * w.nq;
 
   if (threadIdx.x == 0) {
@@ -398,13 +427,17 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = t % 32;
     const int quad = lane % 4;
     const int rl = (t / 32) * 16 + lane / 4;   // this thread's first row of 64
-    const int kw0 = w.kv0 + 64 * wg;           // first kv row of this warpgroup
+    const int kw = kWide ? 0 : 64 * wg;        // first kv row of this warpgroup in the block
+    const int kw0 = w.kv0 + kw;
     const bool with_dq = kD == 128 || wg == 0;
     const int dq_chunk = kD == 128 ? wg : 0;   // dQ's 64 columns of this warpgroup
-    float dkacc[kD / 2];                       // dK: 64 x kD over the warpgroup
-    float dvacc[kD / 2];
+    const int c0 = kWide ? wg * kOwn : 0;      // first d chunk of dK and dV kept here
+    // d chunks kept here: kOwn, but one at 192 for the second warpgroup
+    const int nown = kWide ? min(kOwn, kChunks - c0) : kChunks;
+    float dkacc[kOwn * 32];                    // dK: 64 x 64 kOwn over the warpgroup
+    float dvacc[kOwn * 32];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+    for (int i = 0; i < kOwn * 32; ++i) dkacc[i] = dvacc[i] = 0.f;
     if (iters > 0) hopper::mbar_wait(&sm.kv_full, 0);
 
     for (int it = 0; it < iters; ++it) {
@@ -424,7 +457,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         const uint64_t da =
-            hopper::sw128_desc(&sm.k[kk / 4][64 * 64 * wg + (kk % 4) * 16], 16, 1024);
+            hopper::sw128_desc(&sm.k[kk / 4][64 * kw + (kk % 4) * 16], 16, 1024);
         const uint64_t db = hopper::sw128_desc(&sm.q[st][kk / 4][(kk % 4) * 16], 16, 1024);
         hopper::wgmma_ss_m64n64k16<0, 0>(s, da, db, kk > 0);
       }
@@ -432,7 +465,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         const uint64_t da =
-            hopper::sw128_desc(&sm.v[kk / 4][64 * 64 * wg + (kk % 4) * 16], 16, 1024);
+            hopper::sw128_desc(&sm.v[kk / 4][64 * kw + (kk % 4) * 16], 16, 1024);
         const uint64_t db = hopper::sw128_desc(&sm.dout[st][kk / 4][(kk % 4) * 16], 16, 1024);
         hopper::wgmma_ss_m64n64k16<0, 0>(dp, da, db, kk > 0);
       }
@@ -484,27 +517,32 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q: B read MN-major (q rows of d values)
+      // dV += P^T dO and dK += dS^T Q: B read MN-major (q rows of d values),
+      // over this warpgroup's d chunks
       hopper::fence_regs(dvacc);
       hopper::fence_regs(dkacc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db =
-            hopper::sw128_desc(&sm.dout[st][0][kk * 16 * 64], kTileQ * 128, 1024);
-        if constexpr (kD == 128) {
-          hopper::wgmma_rs_m64n128k16(dvacc, pa[kk], db);
+        // chunk c0 + c of the stage's dO, rows 16 kk on; the chunks lie kTileQ x 128 B apart
+        const auto chunk = [&](int c) {
+          return hopper::sw128_desc(&sm.dout[st][c0 + c][kk * 16 * 64], kTileQ * 128, 1024);
+        };
+        if (nown == kOwn) {
+          hopper::wgmma_rs_over_d<64 * kOwn>(dvacc, pa[kk], chunk);
         } else {
-          hopper::wgmma_rs_m64n64k16(dvacc, pa[kk], db);
+          hopper::wgmma_rs_m64n64k16<0>(dvacc, pa[kk], chunk(0));
         }
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = hopper::sw128_desc(&sm.q[st][0][kk * 16 * 64], kTileQ * 128, 1024);
-        if constexpr (kD == 128) {
-          hopper::wgmma_rs_m64n128k16(dkacc, da[kk], db);
+        const auto chunk = [&](int c) {
+          return hopper::sw128_desc(&sm.q[st][c0 + c][kk * 16 * 64], kTileQ * 128, 1024);
+        };
+        if (nown == kOwn) {
+          hopper::wgmma_rs_over_d<64 * kOwn>(dkacc, da[kk], chunk);
         } else {
-          hopper::wgmma_rs_m64n64k16(dkacc, da[kk], db);
+          hopper::wgmma_rs_m64n64k16<0>(dkacc, da[kk], chunk(0));
         }
       }
       hopper::wgmma_commit();
@@ -512,69 +550,115 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // dS^T to shared memory, [kv][q] rows of 128 bytes in the 128-byte
       // swizzle (16-byte chunk c of row r at c ^ (r % 8)), for both warpgroups'
       // dQ; the buffer alternates, so one barrier a tile keeps it safe.
+      // (Above 128 dims both warpgroups hold the same dS^T: the first writes it.)
       unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.ds[it & 1]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = 64 * wg + rl + 8 * r;
-          *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
-              da[j >> 1][((j & 1) << 1) | r];
-        }
-      }
-      hopper::fence_proxy_async();
-      hopper::named_sync(1, 256);
-
-      // dQ (64 q x 64 d) = dS K over the tile's 128 kv rows: dS^T read as an
-      // MN-major A, K as an MN-major B
-      float dqa[32];  // dQ: 64 q x 64 d
-      if (with_dq) {
-        hopper::fence_regs(dqa);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBwN / 16; ++kk) {
-          const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBwN * 128, 1024);
-          const uint64_t bk =
-              hopper::sw128_desc(&sm.k[dq_chunk][kk * 16 * 64], kBwN * 128, 1024);
-          hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
-        }
-        hopper::wgmma_commit();
-      }
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dvacc);
-      hopper::fence_regs(dkacc);
-      hopper::fence_regs(dqa);
-      hopper::keep_regs(pa);
-      hopper::keep_regs(da);
-      hopper::mbar_arrive(&sm.empty[st]);
-
-      // dQ's partial to the fp32 buffer (B, H, kD/64, sq_pad, 64), rows
-      // swizzled as in shared memory, by one bulk reduce-add
-      if (with_dq) {
-        float* dqs = sm.dq[wg];
-        if (t == 0) hopper::bulk_wait_read<0>();
-        hopper::named_sync(2 + wg, 128);
+      if (!kWide || wg == 0) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const int row = rl + 8 * r;
-            *reinterpret_cast<float2*>(&dqs[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
-                make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+            const int row = kw + rl + 8 * r;
+            *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
+                da[j >> 1][((j & 1) << 1) | r];
           }
         }
         hopper::fence_proxy_async();
-        hopper::named_sync(2 + wg, 128);
-        if (t == 0) {
-          float* dst = dq_acc +
-                       (((static_cast<int64_t>(w.bi) * h + hq) * kChunks + dq_chunk) * sq_pad + q0) *
-                           64;
-          hopper::bulk_reduce_add(dst, dqs, kTileQ * 64 * 4);
-          hopper::bulk_commit();
+      }
+      hopper::named_sync(1, 256);
+
+      if constexpr (kWide) {
+        // dQ (64 q x 64 d) = dS K over the block's 64 kv rows, one d chunk of
+        // this warpgroup at a time, added to the buffer (B, H, kD/64, sq_pad,
+        // 64) at the swizzled places the cast reads
+        float dqa[32];
+#pragma unroll
+        for (int c = 0; c < kOwn; ++c) {
+          if (c >= nown) break;
+          hopper::fence_regs(dqa);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBN * 128, 1024);
+            const uint64_t bk =
+                hopper::sw128_desc(&sm.k[c0 + c][kk * 16 * 64], kBN * 128, 1024);
+            hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dqa);
+          if (c == 0) {   // dV and dK's products are done with the stage too
+            hopper::fence_regs(dvacc);
+            hopper::fence_regs(dkacc);
+            hopper::keep_regs(pa);
+            hopper::keep_regs(da);
+            hopper::mbar_arrive(&sm.empty[st]);
+          }
+          const int64_t row0 =
+              ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + c0 + c) * sq_pad + q0;
+          float* dst = dq_acc + row0 * 64;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = rl + 8 * r;
+              float* at = dst + row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad;
+              atomicAdd(at, dqa[4 * j + 2 * r]);
+              atomicAdd(at + 1, dqa[4 * j + 2 * r + 1]);
+            }
+          }
+        }
+      } else {
+        // dQ (64 q x 64 d) = dS K over the tile's 128 kv rows: dS^T read as an
+        // MN-major A, K as an MN-major B
+        float dqa[32];  // dQ: 64 q x 64 d
+        if (with_dq) {
+          hopper::fence_regs(dqa);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBN * 128, 1024);
+            const uint64_t bk =
+                hopper::sw128_desc(&sm.k[dq_chunk][kk * 16 * 64], kBN * 128, 1024);
+            hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
+          }
+          hopper::wgmma_commit();
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dvacc);
+        hopper::fence_regs(dkacc);
+        hopper::fence_regs(dqa);
+        hopper::keep_regs(pa);
+        hopper::keep_regs(da);
+        hopper::mbar_arrive(&sm.empty[st]);
+
+        // dQ's partial to the fp32 buffer (B, H, kD/64, sq_pad, 64), rows
+        // swizzled as in shared memory, by one bulk reduce-add
+        if (with_dq) {
+          float* dqs = sm.dq[wg];
+          if (t == 0) hopper::bulk_wait_read<0>();
+          hopper::named_sync(2 + wg, 128);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = rl + 8 * r;
+              *reinterpret_cast<float2*>(&dqs[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
+                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+            }
+          }
+          hopper::fence_proxy_async();
+          hopper::named_sync(2 + wg, 128);
+          if (t == 0) {
+            const int64_t row0 =
+                ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + dq_chunk) * sq_pad + q0;
+            float* dst = dq_acc + row0 * 64;
+            hopper::bulk_reduce_add(dst, dqs, kTileQ * 64 * 4);
+            hopper::bulk_commit();
+          }
         }
       }
     }
-    if (with_dq && t == 0) hopper::bulk_wait<0>();
+    if (!kWide && with_dq && t == 0) hopper::bulk_wait<0>();
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -584,8 +668,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       bf16* dkrow = dk + at * dh;
       bf16* dvrow = dvo + at * dv;
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const int d = j * 8 + 2 * quad;
+      for (int j = 0; j < kOwn * 8; ++j) {
+        if (j >= nown * 8) break;
+        const int d = c0 * 64 + j * 8 + 2 * quad;
         store2(dkrow, d, dh, dkacc[4 * j + 2 * r] * scale, dkacc[4 * j + 2 * r + 1] * scale);
         store2(dvrow, d, dv, dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
       }
@@ -636,8 +721,8 @@ int launch_wgmma(const long long* st, const void* q, const void* k, const void* 
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, st[0], st[1], st[2], kTileQ) ||
-      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, st[3], st[4], st[5], kBwN) ||
-      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, st[6], st[7], st[8], kBwN) ||
+      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, st[3], st[4], st[5], bw_rows<kD>()) ||
+      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, st[6], st[7], st[8], bw_rows<kD>()) ||
       !hopper::encode_bshd(&tdo, dout, b, sq, h, dv, st[12], st[13], st[14], kTileQ)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -646,7 +731,7 @@ int launch_wgmma(const long long* st, const void* q, const void* k, const void* 
   static const cudaError_t opt_in =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const int items = (skv + kBwN - 1) / kBwN * kh * b;
+  const int items = (skv + bw_rows<kD>() - 1) / bw_rows<kD>() * kh * b;
   kernel<<<items, kBwThreads, kSmem, stream>>>(
       tq, tk, tv, tdo, lse2, dsum, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv_out),
       b, sq, sq_pad, skv, h, kh, dh, dv, causal, window, scale, scale * kLog2e);
@@ -658,22 +743,24 @@ int launch_wgmma(const long long* st, const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kDCap>
 int launch_f32(const long long* st, const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* dsum, float* dq_acc, void* dq,
                void* dk, void* dv_out, int b, int sq, int sq_pad, int skv, int h, int kh,
                int dh, int dv, int causal, int window, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(bwd_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t kSmemBytes = f32_smem_bytes<kDCap>();
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(bwd_f32_kernel<kDCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kSmemBytes));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const int dp = dh > dv ? dh : dv;
   const dim3 grid((skv + kBk - 1) / kBk, kh, b);
-  bwd_f32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  bwd_f32_kernel<kDCap><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dsum, dq_acc, static_cast<float*>(dk),
       static_cast<float*>(dv_out), sq, sq_pad, skv, h, kh, dh, dv, dp, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], causal, window, scale);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n = static_cast<int64_t>(b) * sq * h * dh;
   cast_f32_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
@@ -689,12 +776,13 @@ int launch_f32(const long long* st, const void* q, const void* k, const void* v,
 // given as 15 values: (batch, sequence, head) strides of q, k, v, o and dO in
 // that order. lse (from the forward) is a dense fp32 (B,H,Sq); dsum and lse2
 // are fp32 scratch of B * H * sq_pad values (sq_pad = Sq rounded up to 64);
-// dq_acc is an fp32 buffer the caller zeroes, of B * H * sq_pad * 128 values;
+// dq_acc is an fp32 buffer the caller zeroes, of B * H * sq_pad * D_pad
+// values, D_pad = max(Dh, Dv) rounded up to 64;
 // dq, dk and dv are dense outputs in the input type. window <= 0 means no
 // sliding window. bf16 q, k, v and dO must have 16-byte aligned bases and
 // strides (TMA describes them; the wrapper pads inputs that are not), else the
 // call returns cudaErrorInvalidValue without a launch. The caller guarantees
-// 1 <= Dh, Dv <= 128 and H % KH == 0.
+// 1 <= Dh, Dv <= 256 and H % KH == 0.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* dsum, void* lse2, void* dq_acc, void* dq, void* dk,
@@ -726,11 +814,16 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   float* acc = static_cast<float*>(dq_acc);
+  const int dmax = dh > dv ? dh : dv;
   if (dtype == kFloat32) {
-    return launch_f32(s, q, k, v, dout, l, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh,
-                      dh, dv, causal, window, scale, st);
+    auto run = dmax > 128 ? launch_f32<256> : launch_f32<128>;
+    return run(s, q, k, v, dout, l, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh, dh, dv,
+               causal, window, scale, st);
   }
-  auto run = (dh > 64 || dv > 64) ? launch_wgmma<128> : launch_wgmma<64>;
+  auto run = dmax > 192   ? launch_wgmma<256>
+             : dmax > 128 ? launch_wgmma<192>
+             : dmax > 64  ? launch_wgmma<128>
+                          : launch_wgmma<64>;
   return run(s, q, k, v, dout, l2, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh, dh, dv,
              causal, window, scale, st);
 }

@@ -306,10 +306,14 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 128, fp32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
-// shared, MN-major: 16 K rows each holding 128 N values).
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+// d[kOff, kOff + 64) (64 x 128, fp32) += A (64 x 16, bf16, registers) * B
+// (16 x 128, bf16, shared, MN-major: 16 K rows each holding 128 N values). The
+// accumulator may be a wider one (64 x 2N over N / 8 fragments of 4 values
+// each): columns [2 kOff, 2 kOff + 128) of it.
+template <int kOff = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[N], const uint32_t (&a)[4],
                                                     uint64_t b) {
+  static_assert(kOff % 32 == 0 && kOff + 64 <= N, "an n128 product's 64 values");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -321,14 +325,16 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
-      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24), REPRO_R8(32), REPRO_R8(40),
-        REPRO_R8(48), REPRO_R8(56)
+      : REPRO_R8(kOff), REPRO_R8(kOff + 8), REPRO_R8(kOff + 16), REPRO_R8(kOff + 24),
+        REPRO_R8(kOff + 32), REPRO_R8(kOff + 40), REPRO_R8(kOff + 48), REPRO_R8(kOff + 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// The same with N = 64.
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+// The same with N = 64: d[kOff, kOff + 32).
+template <int kOff = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[N], const uint32_t (&a)[4],
                                                    uint64_t b) {
+  static_assert(kOff % 32 == 0 && kOff + 32 <= N, "an n64 product's 32 values");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -338,11 +344,29 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
-      : REPRO_R8(0), REPRO_R8(8), REPRO_R8(16), REPRO_R8(24)
+      : REPRO_R8(kOff), REPRO_R8(kOff + 8), REPRO_R8(kOff + 16), REPRO_R8(kOff + 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #undef REPRO_R8
+
+// d (64 x kD, fp32) += A (64 x 16, bf16, registers) * B (16 x kD, bf16,
+// shared, MN-major), B's 64-wide column chunks given by chunk(c) as
+// descriptors (consecutive chunks a fixed distance apart, as the LBO says):
+// one n64 product at kD = 64, else n128 products over chunk pairs and an n64
+// for an odd last chunk.
+template <int kD, typename Chunk>
+__device__ __forceinline__ void wgmma_rs_over_d(float (&d)[kD / 2], const uint32_t (&a)[4],
+                                                Chunk chunk) {
+  static_assert(kD % 64 == 0 && kD >= 64 && kD <= 256, "kD is 64, 128, 192 or 256");
+  if constexpr (kD == 64) {
+    wgmma_rs_m64n64k16<0>(d, a, chunk(0));
+  } else {
+    wgmma_rs_m64n128k16<0>(d, a, chunk(0));
+    if constexpr (kD == 192) wgmma_rs_m64n64k16<64>(d, a, chunk(2));
+    if constexpr (kD == 256) wgmma_rs_m64n128k16<64>(d, a, chunk(2));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

@@ -17,7 +17,7 @@ import torch
 from . import _build
 from .flash_attention import pad_head_dim, tma_describable
 
-D_MAX = 128
+D_MAX = 256
 G_MAX = 16
 SPLIT_TILE = 64        # slots per tile of the bf16 kernel: splits are whole tiles
 BLOCKS_PER_SM = 2      # blocks of the split pass the plan aims for on each SM
@@ -71,7 +71,6 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     16-byte copies cannot read go to the same kernel as padded copies
     (``aligned_caches``)."""
     _build.refuse_graph("decode_attention", q, k_cache, v_cache)
-    _build.check_tensors("decode_attention", q, k_cache, v_cache)
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.ndim != 4:
         raise ValueError(f"decode_attention: q must be 3-D and the caches 4-D, got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -89,6 +88,7 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
         raise ValueError(f"decode_attention: head dims ({dh}, {dv}) outside 1..{D_MAX}")
     if s < 1:
         raise ValueError("decode_attention: empty cache")
+    _build.check_tensors("decode_attention", q, k_cache, v_cache)
     if isinstance(n_valid, int):
         nv = torch.full((b,), n_valid, dtype=torch.int32, device=q.device)
     else:

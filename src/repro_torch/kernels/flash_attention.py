@@ -20,8 +20,22 @@ import torch
 
 from . import _build
 
-D_MAX = 128
+D_MAX = 256
 BWD_TILE_Q = 64   # csrc/flash_attention_bwd.cu kTileQ: lse, D and dQ's buffer are padded to it
+
+
+def padded_head_dim(dh: int, dv: int) -> int:
+    """The head dim the bf16 kernels run at: the larger of Dh and Dv rounded
+    up to a multiple of 64 (one 128-byte row of a TMA box): 64, 128, 192 or
+    256. dQ's fp32 buffer in the backward has this many columns a row."""
+    return -(-max(dh, dv) // 64) * 64
+
+
+def bwd_block_kv(dh: int, dv: int) -> int:
+    """The kv rows a block of the bf16 backward owns
+    (``csrc/flash_attention_bwd.cu`` ``bw_rows``): 128, or 64 when the padded
+    head dim is above 128."""
+    return 64 if padded_head_dim(dh, dv) > 128 else 128
 
 
 @functools.cache
@@ -45,8 +59,8 @@ def _bwd_entry():
 
 
 def _check(name, q, k, v, sliding_window):
-    """Shapes (B,Sq,H,Dh), (B,Skv,KH,Dh), (B,Skv,KH,Dv) the kernels take."""
-    _build.check_tensors(name, q, k, v)
+    """Shapes (B,Sq,H,Dh), (B,Skv,KH,Dh), (B,Skv,KH,Dv) the kernels take,
+    checked on the host before the tensors' devices and types."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{name}: q, k, v must be 4-D, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -64,6 +78,7 @@ def _check(name, q, k, v, sliding_window):
         raise ValueError(f"{name}: empty key sequence")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"{name}: sliding_window {sliding_window} < 1")
+    _build.check_tensors(name, q, k, v)
 
 
 def tma_describable(t: torch.Tensor) -> bool:
@@ -182,7 +197,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
     else:
         sq_pad = -(-sq // BWD_TILE_Q) * BWD_TILE_Q
         dsum = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
-        dq_acc = torch.zeros((b, h, sq_pad, D_MAX), dtype=torch.float32, device=q.device)
+        dq_acc = torch.zeros((b, h, sq_pad, padded_head_dim(dhp, dvp)), dtype=torch.float32,
+                             device=q.device)
         strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                            *o.stride()[:3], *do.stride()[:3])
         with torch.cuda.device(q.device):

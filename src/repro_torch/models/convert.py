@@ -54,25 +54,37 @@ def params_to_numpy(params):
             for k, v in params.items()}
 
 
-_STATE_TREES = ("master", "m", "v")
+_STATE_TREES = {"adamw": ("master", "m", "v"), "adafactor": ("master", "m")}
+_FACTORS = ("vr", "vc")     # Adafactor's statistics: the layer pool's stay stacked
+
+
+def _opt_mode(opt) -> str:
+    keys = set(opt) - {"grad_residual", "step"}
+    for mode, trees in _STATE_TREES.items():
+        if keys == set(trees) | (set(_FACTORS) if mode == "adafactor" else set()):
+            return mode
+    raise NotImplementedError(f"optimizer state with {sorted(opt)}: only AdamW's "
+                              "{master, m, v, step} and Adafactor's {master, m, vr, vc, "
+                              "step}, with or without grad_residual, convert")
 
 
 def state_from_jax(state, *, device="cuda"):
     """The reference's roundpipe train state (``init_roundpipe_state``:
-    ``{"params", "opt": {"master", "m", "v", "step"}}``, pool padded to
-    ``pool_rows``, as nested dicts of numpy arrays) -> the port's, each leaf
-    in its own dtype and the padding rows kept as zero layers. The
+    ``{"params", "opt": {"master", "m", "v", "step"}}`` for AdamW or ``{...,
+    "opt": {"master", "m", "vr", "vc", "step"}}`` for Adafactor, pool padded
+    to ``pool_rows``, as nested dicts of numpy arrays) -> the port's, each leaf
+    in its own dtype and the padding rows kept as zero layers. Adafactor's
+    factored statistics keep the reference's layout, the layer pool's stacked
+    (L, ...), as ``optim.adam.init_opt_state`` keeps them. The
     error-feedback residual ``opt["grad_residual"]`` (stacked like the pool)
     becomes a list of fp32 layer dicts. A LoRA state (``params["lora"]``)
     converts with optimizer trees that hold ``{"lora"}`` only and an
-    adapter-shaped residual. AdamW state only: the reference's
-    Adafactor factors its stacked (L, d) leaves across layers, which
-    per-layer leaves cannot hold."""
+    adapter-shaped residual."""
     opt = state["opt"]
-    if set(opt) - {"grad_residual"} != {*_STATE_TREES, "step"}:
-        raise NotImplementedError(f"optimizer state with {sorted(opt)}: only AdamW's "
-                                  "{master, m, v, step} and grad_residual convert")
-    out = {k: params_from_jax(opt[k], device=device) for k in _STATE_TREES}
+    mode = _opt_mode(opt)
+    out = {k: params_from_jax(opt[k], device=device) for k in _STATE_TREES[mode]}
+    if mode == "adafactor":
+        out.update({k: _map(lambda a: _leaf(a, None, device), opt[k]) for k in _FACTORS})
     out["step"] = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=device)
     if "grad_residual" in opt:
         out["grad_residual"] = params_from_jax({"layers": opt["grad_residual"]},
@@ -84,7 +96,11 @@ def state_to_numpy(state):
     """The port's roundpipe train state -> the reference's layout as float32
     numpy arrays (layers stacked on axis 0), with an int32 step and, when the
     state has one, the stacked residual."""
-    opt = {k: params_to_numpy(state["opt"][k]) for k in _STATE_TREES}
+    mode = _opt_mode(state["opt"])
+    opt = {k: params_to_numpy(state["opt"][k]) for k in _STATE_TREES[mode]}
+    if mode == "adafactor":
+        opt.update({k: _map(lambda t: t.detach().to(device="cpu", dtype=torch.float32).numpy(),
+                            state["opt"][k]) for k in _FACTORS})
     opt["step"] = np.asarray(int(state["opt"]["step"]), np.int32)
     if "grad_residual" in state["opt"]:
         opt["grad_residual"] = params_to_numpy({"layers": state["opt"]["grad_residual"]})[

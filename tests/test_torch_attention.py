@@ -6,7 +6,9 @@ algorithm out plainly. Here it is held against the port's plain
 ``decode_attention_ref``, the jnp oracle and the Pallas ``decode_attention``
 (interpret mode, as ``tests/test_kernels.py`` runs it) on the cases the split
 kernel must get right: splits that n_valid ends before, n_valid 0 and past S,
-n_valid on a split edge, S off the split size, groups of 5 and 16, Dv != Dh.
+n_valid on a split edge, S off the split size, groups of 5 and 16, Dv != Dh,
+and the head dims above 128 (160, 192 with a group of 12, 256 under MQA,
+MLA's Dh 192 with Dv 128).
 The wrapper's split plan and the padding of inputs that 16-byte copies cannot
 read (the flash forward's TMA loads, flash-decode's cp.async) are plain
 Python too, and are checked here; the kernels themselves run in
@@ -54,6 +56,11 @@ SPLIT = [
     ("group-16", 2, 130, 16, 1, 32, 32, [130, 64], 64, 130, "float32"),
     ("dv-ne-dh", 2, 150, 8, 2, 40, 24, [150, 20], 32, 150, "float32"),
     ("bf16-edges", 3, 129, 8, 2, 64, 64, [64, 0, 129], 64, 129, "bfloat16"),
+    ("wide-160", 2, 130, 8, 2, 160, 160, [130, 64], 64, 130, "float32"),
+    ("wide-192-group-12", 2, 100, 24, 2, 192, 192, [100, 37], 64, 100, "float32"),
+    ("wide-256-mqa", 2, 150, 8, 1, 256, 256, [150, 0], 64, 150, "float32"),
+    ("mla-192-128", 2, 120, 4, 4, 192, 128, [120, 60], 64, 120, "float32"),
+    ("wide-256-bf16", 2, 129, 8, 1, 256, 256, [64, 129], 64, 129, "bfloat16"),
 ]
 
 
@@ -92,12 +99,22 @@ def test_decode_plan_at_the_main_shapes(shape, want):
     """qwen3-1.7b's serving cache (prompt 1024 + 32 tokens, B=4, 8 kv heads)
     and hymba-1.5b's ring (window 1024, B=4, 5 kv heads) on an H100's 132
     SMs: whole 64-slot tiles per split and ~2 blocks of the (KH, B, splits)
-    grid per SM."""
+    grid per SM. (gemma-2b's single kv head: ``test_decode_plan_of_one_kv_head``.)"""
     s, b, kh = shape
     splits, chunk = decode_plan(s, b, kh, 132)
     assert (splits, chunk) == want
     assert chunk % 64 == 0 and (splits - 1) * chunk < s <= splits * chunk
     assert 1.5 * 132 <= b * kh * splits <= 2.5 * 132
+
+
+def test_decode_plan_of_one_kv_head():
+    """gemma-2b's serving cache (1056 slots, B=4, one kv head) and
+    stablelm-12b's (8 kv heads): one-tile splits give gemma every 64-slot
+    tile of the cache as a block of its own, 17 splits x 4 = 68 blocks, the
+    most whole tiles allow (half-tile splits, 132 blocks, measured no faster
+    on the card); stablelm's grid is qwen3-1.7b's."""
+    assert decode_plan(1056, 4, 1, 132) == (17, 64)
+    assert decode_plan(1056, 4, 8, 132) == (9, 128)
 
 
 @pytest.mark.parametrize("s,b,kh", [(1, 1, 1), (64, 2, 2), (300, 2, 1), (4096, 1, 8),

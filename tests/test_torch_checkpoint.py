@@ -9,6 +9,10 @@ CPU, against the JAX reference's checkpoint store.
   ``init_roundpipe_state`` tree, leaf for leaf and dtype for dtype, and a
   reference-written one loads into the port's state (dense, and LoRA with an
   error-feedback residual);
+* an Adafactor train state (``{master, m, vr, vc, step}``) converts from the
+  reference's bit for bit, equals the port's own ``init_opt_state`` over the
+  same weights, converts back, and one update of each package lands within
+  the bars of the optimizer test (fp32 rtol 1e-5, the bf16 first moment 2^-7);
 * ``FaultTolerantLoop`` restores the newest checkpoint and replays after an
   injected step exception;
 * the launcher (``--device cpu``, smoke qwen3-1.7b, N = 4, b=8, s=16): 4
@@ -31,11 +35,12 @@ from repro.core import dispatch as j_dispatch
 from repro.launch.steps import StepConfig as JStepConfig
 from repro.models import lora as j_lora
 from repro.models.config import get_config as j_get_config
+from repro.optim import adam as j_adam
 from repro_torch.checkpoint import (CheckpointManager, latest_step, load_checkpoint,
                                     save_checkpoint)
 from repro_torch.launch import train
-from repro_torch.models.convert import state_from_jax
-from repro_torch.optim.adam import tree_leaves
+from repro_torch.models.convert import state_from_jax, state_to_numpy
+from repro_torch.optim.adam import OptConfig, apply_updates, init_opt_state, tree_leaves
 from repro_torch.runtime import FaultTolerantLoop
 
 
@@ -172,6 +177,94 @@ def test_each_package_reads_the_others_checkpoints(tmp_path, kind):
     back, step = load_checkpoint(tmp_path / "ref", 6, state)
     assert step == 6
     _same(back, state)
+
+
+def _paths(tree, prefix=""):
+    """{dotted path: leaf} of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {p: x for k, v in tree.items() for p, x in _paths(v, f"{prefix}.{k}").items()}
+    if isinstance(tree, list):
+        return {p: x for i, v in enumerate(tree) for p, x in _paths(v, f"{prefix}[{i}]").items()}
+    return {prefix: tree}
+
+
+@pytest.fixture(scope="module")
+def adafactor_state():
+    """The reference's Adafactor roundpipe state at smoke width, 3 layers in
+    a pool of 4 rows."""
+    import dataclasses
+    j_cfg = dataclasses.replace(j_smoke_config(j_get_config(ARCH)), n_layers=3)
+    j_state = j_dispatch.init_roundpipe_state(
+        jax.random.PRNGKey(4), j_cfg,
+        JStepConfig(strategy="roundpipe", opt=j_adam.OptConfig(mode="adafactor")), n_workers=N)
+    return jax.tree.map(np.asarray, j_state)
+
+
+@pytest.mark.parametrize("check", ["reference", "port_init", "round_trip"])
+def test_adafactor_state_converts_bit_exactly(adafactor_state, check):
+    j_state = adafactor_state
+    assert set(j_state["opt"]) == {"master", "m", "vr", "vc", "step"}
+    state = state_from_jax(j_state, device="cpu")
+    assert len(state["opt"]["master"]["layers"]) == 4                 # the padded pool
+    if check == "reference":   # leaf for leaf against init_opt_state(mode="adafactor")
+        want = jax.tree.map(np.asarray, j_adam.init_opt_state(j_state["params"],
+                                                              j_adam.OptConfig(mode="adafactor")))
+        got = state_to_numpy(state)["opt"]
+        for key in ("master", "m", "vr", "vc"):
+            w, g = _paths(want[key]), _paths(got[key])
+            assert w.keys() == g.keys()
+            for p in w:
+                np.testing.assert_array_equal(g[p], np.asarray(w[p], np.float32), err_msg=p)
+        assert int(got["step"]) == int(want["step"]) == 0
+        assert state["opt"]["m"]["embed"].dtype == torch.bfloat16
+        assert state["opt"]["vr"]["layers"]["attn"]["w_q"].shape == (4, 64)   # stacked (L, d)
+    elif check == "port_init":   # what the port itself keeps for the same weights
+        want = _paths(init_opt_state(state["params"], OptConfig(mode="adafactor")))
+        got = _paths(state["opt"])
+        assert want.keys() == got.keys()
+        for p in want:
+            assert got[p].dtype == want[p].dtype and got[p].shape == want[p].shape, p
+            assert torch.equal(got[p], want[p]), p
+    else:
+        back = state_to_numpy(state)
+        flat_ref, tree_ref = jax.tree.flatten(j_state)
+        flat_back, tree_back = jax.tree.flatten(back)
+        assert tree_ref == tree_back
+        for a, b in zip(flat_ref, flat_back):
+            np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+
+def test_adafactor_update_after_conversion_matches_reference(adafactor_state):
+    """One Adafactor update of the converted state against one update of the
+    reference's, with the same gradients (the padding row's zero): every
+    leaf within the optimizer test's bars."""
+    j_state = adafactor_state
+    rng = np.random.default_rng(5)
+    grads = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32),
+                         j_state["params"])
+    for leaf in jax.tree.leaves(grads["layers"]):
+        leaf[3:] = 0.0                                   # the pool's padding row
+    kw = dict(mode="adafactor", lr=1e-2, weight_decay=0.1)
+    j_params, j_opt, _ = j_adam.apply_updates(j_state["opt"], grads, j_adam.OptConfig(**kw),
+                                              param_like=j_state["params"])
+    state = state_from_jax(j_state, device="cpu")
+    params, opt, _ = apply_updates(state["opt"], state_from_jax(
+        {"params": grads, "opt": j_state["opt"]}, device="cpu")["params"], OptConfig(**kw),
+        param_like=state["params"])
+    want = state_to_numpy(state_from_jax({"params": jax.tree.map(np.asarray, j_params),
+                                          "opt": jax.tree.map(np.asarray, j_opt)},
+                                         device="cpu"))
+    got = state_to_numpy({"params": params, "opt": opt})
+    assert int(got["opt"]["step"]) == int(want["opt"]["step"]) == 1
+    for key in ("master", "m", "vr", "vc"):
+        tol = dict(rtol=2 ** -7, atol=1e-6) if key == "m" else dict(rtol=1e-5, atol=1e-6)
+        w, g = _paths(want["opt"][key]), _paths(got["opt"][key])
+        assert w.keys() == g.keys()
+        for p in w:
+            np.testing.assert_allclose(g[p], w[p], err_msg=f"{key}{p}", **tol)
+    w, g = _paths(want["params"]), _paths(got["params"])
+    for p in w:
+        np.testing.assert_allclose(g[p], w[p], rtol=2 ** -7, atol=1e-6, err_msg=p)
 
 
 def test_fault_tolerant_loop_restores_and_replays(tmp_path):

@@ -76,7 +76,11 @@ def test_port_imports_and_serves_with_jax_and_the_reference_blocked():
                      for p in PORT.rglob("*.py"))
     assert {"repro_torch.checkpoint.store", "repro_torch.runtime.fault_tolerance",
             "repro_torch.runtime.supervisor",
-            "repro_torch.optim.async_opt", "repro_torch.core.consistency"} <= set(modules)
+            "repro_torch.optim.async_opt", "repro_torch.core.consistency",
+            "repro_torch.configs.__init__",
+            *(f"repro_torch.configs.{c}" for c in ("llama_3_1_8b", "qwen3_32b", "starcoder2_7b",
+                                                   "stablelm_12b", "gemma_2b",
+                                                   "nemotron_4_340b"))} <= set(modules)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -85,6 +89,9 @@ def test_port_imports_and_serves_with_jax_and_the_reference_blocked():
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "from repro_torch.launch import serve\n"
         "out = serve.main(['--arch', 'qwen3-1.7b', '--smoke', '--device', 'cpu',\n"
+        "                  '--batch', '1', '--prompt-len', '4', '--gen', '2'])\n"
+        "assert tuple(out.tokens.shape) == (1, 2)\n"
+        "out = serve.main(['--arch', 'gemma-2b', '--smoke', '--device', 'cpu',\n"
         "                  '--batch', '1', '--prompt-len', '4', '--gen', '2'])\n"
         "assert tuple(out.tokens.shape) == (1, 2)\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"

@@ -1,7 +1,8 @@
 """The Python around the Hopper training kernels, on the CPU.
 
-The bf16 flash backward walks blocks of 128 kv rows and query tiles of 64
-within its causal and window bounds, summing dQ over the blocks; the fused
+The bf16 flash backward walks blocks of 128 kv rows (64 when the padded head
+dim is above 128) and query tiles of 64 within its causal and window bounds,
+summing dQ over the blocks; the fused
 cross-entropy forward splits the vocabulary into runs of 256-column tiles and
 merges the splits' partials. ``ref.flash_attention_bwd_tiled_ref``,
 ``ref.xent_split_partials_ref`` and ``ref.xent_combine_ref`` write those
@@ -9,8 +10,9 @@ decompositions out plainly. Here they are held against the port's plain
 versions, ``jax.vjp`` of the reference's ``chunked_attention`` and the Pallas
 ``fused_xent`` (interpret mode) on the edges the kernels must get right:
 ragged S and V, window bounds on a tile edge and off it, a GQA group of 5,
-Dv != Dh. The wrappers' split plan and their padding of operands that TMA
-cannot read are plain Python too, and are checked here; the kernels
+Dv != Dh, the head dims above 128 (160, 192 and 256, and MLA's Dh 192 with
+Dv 128). The wrappers' split plan, their head-dim bounds and their padding
+of operands that TMA cannot read are plain Python too, and are checked here; the kernels
 themselves run in ``chip_smoke.py`` on the card. Inputs come from numpy
 seeds.
 """
@@ -22,10 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.fused_xent import fused_xent as pallas_xent
 from repro.models import layers as JL
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import tma_bwd_inputs, tma_describable
+from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
+from repro_torch.kernels.flash_attention import (bwd_block_kv, flash_attention,
+                                                 flash_attention_bwd, padded_head_dim,
+                                                 tma_bwd_inputs, tma_describable)
 from repro_torch.kernels.fused_xent import (TOKENS_PER_BLOCK, VOCAB_TILE, head_rows,
                                             vocab_splits)
 
@@ -48,7 +54,10 @@ def npf(x):
 
 # (label, b, s, h, kh, dh, dv, causal, window): S off the 64/128 tiles, a
 # window whose bound lands on a query-tile edge (65: 127 + 65 = 3 x 64) and
-# one off it, a group of 5, Dv != Dh, no mask
+# one off it, a group of 5, Dv != Dh, no mask; and the head dims above 128
+# (blocks of 64 kv rows): stablelm-12b's 160, nemotron-4-340b's 192 with a
+# window on a tile edge (65: 63 + 65 = 2 x 64), gemma-2b's 256 under MQA,
+# MLA's (192, 128)
 BWD = [
     ("causal-ragged", 1, 200, 4, 2, 32, 32, True, None),
     ("window-on-edge", 1, 320, 2, 1, 16, 16, True, 65),
@@ -56,6 +65,10 @@ BWD = [
     ("group-5", 1, 150, 10, 2, 16, 16, True, None),
     ("dv-ne-dh", 2, 140, 4, 2, 40, 24, True, None),
     ("bidirectional", 1, 200, 2, 2, 16, 16, False, None),
+    ("wide-160", 1, 150, 4, 2, 160, 160, True, None),
+    ("wide-192-window", 1, 200, 6, 2, 192, 192, True, 65),
+    ("wide-256-mqa", 1, 140, 4, 1, 256, 256, True, None),
+    ("mla-192-128", 1, 130, 2, 2, 192, 128, True, None),
 ]
 
 
@@ -66,7 +79,9 @@ def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, cau
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     kw = dict(causal=causal, sliding_window=window)
     o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
-    tiled = ref.flash_attention_bwd_tiled_ref(tq, tk, tv, o, lse, tdo, **kw)
+    block = bwd_block_kv(dh, dv)
+    assert block == (64 if max(dh, dv) > 128 else 128)
+    tiled = ref.flash_attention_bwd_tiled_ref(tq, tk, tv, o, lse, tdo, block_kv=block, **kw)
     plain = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
     oracle = jax.jit(lambda a, c, e, g: jax.vjp(  # one compile, not one per operation
         lambda a, c, e: JL.chunked_attention(a, c, e, kv_chunk=s, **kw), a, c, e)[1](g))(
@@ -75,14 +90,19 @@ def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, cau
         np.testing.assert_allclose(npf(got), npf(want), rtol=1e-5, atol=1e-5, err_msg=name)
         np.testing.assert_allclose(npf(got), np.asarray(jwant), rtol=1e-4, atol=1e-4,
                                    err_msg=name)
+    if max(dh, dv) > 128:   # the forward it differentiates: the Pallas kernel, one block
+        np.testing.assert_allclose(npf(o), np.asarray(pallas_flash(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=s, block_k=s,
+            interpret=True, **kw)), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 65), (True, 64),
                                            (False, None), (False, 100)])
 def test_bwd_bounds_skip_only_masked_tiles(causal, window):
-    """Each 128-row kv block's query range (``ref.bwd_query_range``, the
-    kernel's bounds): every query tile outside it is wholly masked for the
-    block, and its first and last rows each see a kv row of the block."""
+    """Each kv block's query range (``ref.bwd_query_range``, the kernel's
+    bounds; blocks of 128 rows, or 64 above 128 dims): every query tile
+    outside it is wholly masked for the block, and its first and last rows
+    each see a kv row of the block."""
     sq = skv = 1000
     q_pos = torch.arange(sq)[:, None]
     kv_pos = torch.arange(skv)[None, :]
@@ -91,12 +111,13 @@ def test_bwd_bounds_skip_only_masked_tiles(causal, window):
         live &= kv_pos <= q_pos
     if window is not None:
         live &= kv_pos > q_pos - window
-    for kv0 in range(0, skv, 128):
-        block = live[:, kv0:kv0 + 128]
-        q_begin, q_end = ref.bwd_query_range(kv0, 128, sq, causal, window)
-        assert q_begin % 64 == 0
-        assert not block[:q_begin].any() and not block[q_end:].any()
-        assert block[q_begin].any() and block[q_end - 1].any()
+    for block_kv in (128, 64):
+        for kv0 in range(0, skv, block_kv):
+            block = live[:, kv0:kv0 + block_kv]
+            q_begin, q_end = ref.bwd_query_range(kv0, block_kv, sq, causal, window)
+            assert q_begin % 64 == 0
+            assert not block[:q_begin].any() and not block[q_end:].any()
+            assert block[q_begin].any() and block[q_end - 1].any()
 
 
 # (label, T, D, V, ignore every, sms)
@@ -189,3 +210,32 @@ def test_bwd_inputs_the_loads_cannot_read_are_padded():
     for g, w, n in zip(got, want, (36, 36, 20)):
         assert torch.all(g[..., n:] == 0)
         np.testing.assert_allclose(npf(g[..., :n]), npf(w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dh,dv", [(256, 256), (160, 160), (192, 128), (257, 256), (256, 257),
+                                   (0, 64)])
+def test_wrappers_take_head_dims_up_to_256(dh, dv):
+    """The three attention wrappers check Dh and Dv on the host before the
+    tensors' device: up to 256 the check passes and the CPU tensors are then
+    refused as not CUDA (there is no fallback); 257 (or 0) is refused by
+    name."""
+    q, k, v = torch.zeros(1, 4, 2, dh), torch.zeros(1, 4, 1, dh), torch.zeros(1, 4, 1, dv)
+    o, lse = torch.zeros(1, 4, 2, dv), torch.zeros(1, 2, 4)
+    calls = [lambda: flash_attention(q, k, v), lambda: flash_attention_bwd(q, k, v, o, lse, o),
+             lambda: decode_kernel(q[:, 0], k, v, 4)]
+    for call in calls:
+        with pytest.raises(ValueError) as err:
+            call()
+        if 1 <= dh <= 256 and 1 <= dv <= 256:
+            assert "CUDA tensors" in str(err.value)
+        else:
+            assert f"head dims ({dh}, {dv}) outside 1..256" in str(err.value)
+
+
+@pytest.mark.parametrize("dh,dv,want", [(1, 1, 64), (64, 64, 64), (65, 8, 128), (128, 128, 128),
+                                        (160, 160, 192), (192, 128, 192), (200, 256, 256)])
+def test_padded_head_dim_and_bwd_blocks(dh, dv, want):
+    """The bf16 kernels' padded head dim (dQ's fp32 buffer has this many
+    columns a row, not 256 for every call) and the backward's kv block."""
+    assert padded_head_dim(dh, dv) == want
+    assert bwd_block_kv(dh, dv) == (64 if want > 128 else 128)
