@@ -25,7 +25,10 @@ Phases, in order; any failure exits non-zero at once:
      groups 4, 5 and 16), and at head dims above 128 in fp32 and bf16
      (gemma-2b's 256 under MQA, stablelm-12b's 160, nemotron-4-340b's 192
      with a group of 12, MLA's Dh 192 with Dv 128; ragged S, a window,
-     strided and padded layouts; the flash backward too), at the
+     strided and padded layouts; the flash backward too, also where its
+     plan splits a group's query heads over blocks, unevenly and under a
+     window, and where it keeps groups of 12 and 4 whole, after a line of
+     its plans), at the
      tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16 2e-2); the
      training kernels at the training shapes and over an edge sweep, the
      flash backward against ``ref.flash_attention_bwd_ref`` and against
@@ -603,7 +606,48 @@ def wide_bwd_cases():
                   (f"wide-window-{n}", 1, 300, 4, 2, 160, 160, True, 100, dtype, "bshd"),
                   (f"wide-strided-bhsd-{n}", 2, 200, 8, 2, 256, 256, True, 64, dtype, "bhsd")]
     cases.append(("wide-unaligned-bf16", 2, 100, 4, 2, 196, 132, True, None, bf16, "bshd"))
-    return cases
+    return cases + wide_split_cases()
+
+
+def wide_split_cases():
+    """bf16 cases of the head-split plan (``bwd_plan``) at D 256 under MQA
+    and at D 192 and 160 where it keeps whole groups: a group of 7 that the
+    plan cuts into items of 2, 2, 2 and 1 heads, gemma-2b's group cut under a
+    window, and nemotron-4-340b's group of 12 and stablelm-12b's of 4 at one
+    ring worker's training shape (enough items, so dK and dV go out
+    directly)."""
+    import torch
+    bf16 = torch.bfloat16
+    bw = TRAIN_BATCH // TRAIN_WORKERS
+    return [("split-group-7-bf16", 3, TRAIN_SEQ, 7, 1, 256, 256, True, None, bf16, "bshd"),
+            ("split-window-bf16", bw, TRAIN_SEQ, 8, 1, 256, 256, True, 300, bf16, "bshd"),
+            ("unsplit-group-12-bf16", bw, TRAIN_SEQ, 96, 8, 192, 192, True, None, bf16, "bshd"),
+            ("unsplit-group-4-bf16", bw, TRAIN_SEQ, 32, 8, 160, 160, True, None, bf16, "bshd")]
+
+
+def check_bwd_plans():
+    """Prints the backward's plan at gemma-2b's training shape and at the
+    split cases, and fails unless each case takes the branch it is there
+    for: split, with a ragged last item where it says so, or whole groups."""
+    from repro_torch.kernels import flash_attention
+    bwd_plan = flash_attention.bwd_plan
+    sms = flash_attention._sm_count(0)
+    a = _attn(WIDE_ARCH)
+    bw = TRAIN_BATCH // TRAIN_WORKERS
+    plans = {f"{WIDE_ARCH}-training": bwd_plan(bw, TRAIN_SEQ, a["h"], a["kh"], a["d"], a["d"],
+                                               sms)}
+    for label, b, s, h, kh, dh, dv, *_ in wide_split_cases():
+        plans[label] = plan = bwd_plan(b, s, h, kh, dh, dv, sms)
+        group = h // kh
+        if label.startswith("split"):
+            check(plan.splits > 1, f"flash_attention_bwd[{label}]: plan {plan} does not split")
+        else:
+            check(plan.splits == 1, f"flash_attention_bwd[{label}]: plan {plan} splits")
+        if label == "split-group-7-bf16":
+            check(group % plan.heads != 0, f"flash_attention_bwd[{label}]: plan {plan} divides")
+    print(f"flash_attention_bwd plans on {sms} SMs: " + json.dumps(
+        {k: {"block_kv": p.block_kv, "splits": p.splits, "heads": p.heads}
+         for k, p in plans.items()}))
 
 
 def xent_cases():
@@ -646,7 +690,8 @@ def phase_train_kernels():
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.fused_xent import fused_xent
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    errs = {}
+    errs, rels = {}, {}
+    check_bwd_plans()
     for label, b, s, h, kh, dh, dv, causal, window, dtype, layout in flash_bwd_cases():
         q, k, v = _flash_inputs(b, s, h, kh, dh, dv, dtype, layout, gen)
         kw = dict(causal=causal, sliding_window=window)
@@ -667,6 +712,7 @@ def phase_train_kernels():
             print("flash_attention_bwd[training] relative error vs plain: " + ", ".join(
                 f"{name} {_rel(g, p):.3e}" for name, g, p in zip(("dq", "dk", "dv"), got, plain)))
         errs[("flash_attention_bwd", label)] = err
+        rels[label] = max(_rel(g, p) for g, p in zip(got, plain))
         del q, k, v, o, lse, do, got, plain, auto, leaves, o_ref, lse_ref
     for label, t, d, v, dtype, layout, every in xent_cases():
         x, w, labels = _xent_inputs(t, d, v, dtype, layout, every, gen)
@@ -694,6 +740,8 @@ def phase_train_kernels():
     wide = {c[0] for c in wide_bwd_cases()}
     print("kernels vs plain, head dims above 128: " + json.dumps(
         {f"{name}[{label}]": e for (name, label), e in errs.items() if label in wide}))
+    print("flash_attention_bwd vs plain, head dims above 128, worst relative norm of dq, dk, "
+          "dv: " + json.dumps({label: r for label, r in rels.items() if label in wide}))
     return _err_summary(errs, "training", wide=wide)
 
 
@@ -3255,11 +3303,12 @@ def phase_wide_ring_vs_single():
 def phase_wide_timings(errs, launches):
     """The d_head-256 instances at gemma-2b's shapes, bf16, beside their
     bounds, their plain versions and ``scaled_dot_product_attention``'s
-    forward, backward and decode (a yardstick only: the port never calls
-    it): the flash forward at its prefill (B=4, S=1024, H=8, KH=1), the
-    backward at one ring worker's training shape (B=2), flash-decode over
-    its full serving cache (S=1056). Rows of the ``kernels`` line, named
-    ``<kernel>@gemma-2b``; launches are those of the gemma-2b runs."""
+    forward, backward alone (and forward and backward together) and decode
+    (a yardstick only: the port never calls it): the flash forward at its
+    prefill (B=4, S=1024, H=8, KH=1), the backward at one ring worker's
+    training shape (B=2), flash-decode over its full serving cache (S=1056).
+    Rows of the ``kernels`` line, named ``<kernel>@gemma-2b``; launches are
+    those of the gemma-2b runs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -3330,14 +3379,28 @@ def phase_wide_timings(errs, launches):
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         lib_sets.append((qt, kt, vt, do.transpose(1, 2).contiguous()))
 
-    def sdpa_bwd(qt, kt, vt, dot):
+    def sdpa_fwd_bwd(qt, kt, vt, dot):
         with torch.enable_grad():
             ot = F.scaled_dot_product_attention(qt, *widen(kt, vt), is_causal=True, **kw)
         return torch.autograd.grad(ot, (qt, kt, vt), dot)
 
-    lib = yardstick(sdpa_bwd, lib_sets, 10,
-                    lambda: {"library_device_queued_ms": _queued_ms(sdpa_bwd, lib_sets, 10),
-                             "library_note": "SDPA's forward and backward together"})
+    # the yardstick, like for like: SDPA's backward alone (its forward run
+    # once, the graph kept for every timed backward); beside it the forward
+    # and backward together
+    bwd_sets = []
+    for qt, kt, vt, dot in lib_sets:
+        with torch.enable_grad():
+            ot = F.scaled_dot_product_attention(qt, *widen(kt, vt), is_causal=True, **kw)
+        bwd_sets.append((ot, (qt, kt, vt), dot))
+    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
+                                                           retain_graph=True)
+    lib = yardstick(sdpa_bwd, bwd_sets, 10,
+                    lambda: {"library_device_queued_ms": _queued_ms(sdpa_bwd, bwd_sets, 10),
+                             "library_note": "SDPA's backward alone"})
+    both = yardstick(sdpa_fwd_bwd, lib_sets, 10,
+                     lambda: {"library_device_queued_ms": _queued_ms(sdpa_fwd_bwd, lib_sets, 10)})
+    lib.update({f"library_fwd_bwd_{k.removeprefix('library_')}": v for k, v in both.items()})
+    del bwd_sets
     pairs = s * (s + 1) // 2
     flops = 5 * 2 * bw * h * pairs * d
     row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -3346,7 +3409,8 @@ def phase_wide_timings(errs, launches):
         ms, plain_ms, lib, (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4,
         flops)
     rows[-1].update({"device_ms": device_ms, "device_queued_ms": queued_ms,
-                     "tflops": flops / (queued_ms * 1e-3) / 1e12})
+                     "tflops": flops / (queued_ms * 1e-3) / 1e12,
+                     "device_kernels_ms": _kernel_ms(flash_attention_bwd, sets, 5)})
     del sets, lib_sets
 
     # flash-decode over the full serving cache
@@ -3378,8 +3442,9 @@ def phase_wide_timings(errs, launches):
 TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
                                        "decode_combine_kernel"),
                   "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
-                  "flash_attention_bwd": ("flash_bwd_wgmma_kernel", "bwd_f32_kernel",
-                                          "bwd_dot_kernel", "cast_dq_kernel", "cast_f32_kernel"),
+                  "flash_attention_bwd": ("flash_bwd_wgmma_kernel", "flash_bwd_wide_kernel",
+                                          "bwd_f32_kernel", "bwd_dot_kernel", "cast_dq_kernel",
+                                          "cast_f32_kernel"),
                   "fused_xent": ("xent_wgmma_kernel", "xent_f32_kernel", "xent_combine_kernel")}
 
 

@@ -31,10 +31,15 @@ beside ``F.cross_entropy(x @ W^T, reduction="none")``. ``--scans`` times the
 two scans the same ways at the prefill and decode shapes of ``chip_smoke.py``:
 ``rwkv_scan`` at rwkv6-7b's (B=4, S=1024 or 1, H=64, N=64, fp32) and
 ``ssm_scan`` at hymba-1.5b's (B=4, S=1536 or 1, Di=3200, N=16, bf16 in, fp32
-y). ``--attention`` times the three attention kernels at their Dh <= 128
+y). ``--sweep`` also times the wide flash backward at gemma-2b's and
+nemotron-4-340b's training shapes with a group's query heads split over
+each count of items that divides the group.
+``--attention`` times the three attention kernels at their Dh <= 128
 main-path shapes (qwen3-1.7b's prefill B=4, S=1024, H=16, KH=8, D=128; its
 training backward at B=2; its decode over 1056 slots; hymba-1.5b's prefill
-with its window and its decode over the ring), bf16, the same ways: run it
+with its window and its decode over the ring) and the wide backward at
+gemma-2b's training shape (B=2, S=1024, H=8, KH=1, D=256) and
+nemotron-4-340b's (B=2, S=1024, H=96, KH=8, D=192), bf16, the same ways: run it
 from a ``git archive`` of another commit (with this script copied into its
 ``scripts/``) and from this tree in one call to compare two commits' kernels
 on one card. Checks against the plain versions are ``chip_smoke.py``'s.
@@ -169,10 +174,56 @@ def scan_times():
     print("scan times " + json.dumps(out))
 
 
+# the wide instances of the flash backward: d_head 256 at gemma-2b's training
+# shape (one ring worker, MQA) and 192 at nemotron-4-340b's (group 12)
+WIDE_BWD_SHAPES = (("gemma", 2, 1024, 8, 1, 256), ("nemotron", 2, 1024, 96, 8, 192))
+
+
+def _bwd_sets(b, s, h, kh, d, gen, n=4):
+    """``n`` cold input sets of the flash backward, bf16 (``chip_smoke.py``'s
+    inputs and the forward's own output and log-sum-exp)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import flash_attention
+    sets = []
+    for _ in range(n):
+        q, k, v = cs._flash_inputs(b, s, h, kh, d, d, torch.bfloat16, "bshd", gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        sets.append((q, k, v, o, lse, cs._rand(o.shape, torch.bfloat16, gen)))
+    return sets
+
+
+def sweep_bwd_splits():
+    """The wide flash backward's device time at ``WIDE_BWD_SHAPES`` over the
+    number of items a group's query heads are split into (gemma-2b's group
+    of 8 into 1, 2, 4 and 8; nemotron-4-340b's of 12 into 1, 2, 3, 4, 6 and
+    12; ``bwd_plan``'s choice printed beside), by a replayed CUDA graph and
+    by the trace's per-kernel sums."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import flash_attention as mod
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    plan = mod.bwd_plan
+    out = {}
+    for label, b, s, h, kh, d in WIDE_BWD_SHAPES:
+        sets = _bwd_sets(b, s, h, kh, d, gen)
+        group = h // kh
+        out[f"{label}_plan"] = plan(b, s, h, kh, d, d, mod._sm_count(0))._asdict()
+        for splits in (n for n in range(1, group + 1) if group % n == 0):
+            mod.bwd_plan = lambda *a, n=splits: mod.BwdPlan(64, n, group // n)
+            out[f"{label}_splits{splits}"] = {
+                "graph_ms": cs._graph_ms(mod.flash_attention_bwd, sets, 5),
+                "trace_ms": cs._kernel_ms(mod.flash_attention_bwd, sets, 5)}
+        mod.bwd_plan = plan
+        del sets
+    print("flash backward split sweep " + json.dumps(out))
+
+
 def attention_times():
     """Device ms per call of the flash forward, the flash backward and
-    flash-decode at the Dh <= 128 shapes of the main path (``chip_smoke.py``'s
-    inputs, cold sets)."""
+    flash-decode at the Dh <= 128 shapes of the main path, and of the wide
+    backward instances (``WIDE_BWD_SHAPES``) (``chip_smoke.py``'s inputs,
+    cold sets)."""
     import torch
     import chip_smoke as cs
     from repro_torch.kernels.decode_attention import decode_attention
@@ -193,6 +244,9 @@ def attention_times():
         sets.append((q, k, v, o, lse, cs._rand(o.shape, bf16, gen)))
     out["flash_bwd_qwen"] = _device_times(flash_attention_bwd, sets)
     del sets
+    for label, b, s, h, kh, d in WIDE_BWD_SHAPES:
+        out[f"flash_bwd_{label}"] = _device_times(flash_attention_bwd,
+                                                  _bwd_sets(b, s, h, kh, d, gen))
     for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64)):
         nv = torch.full((b,), s, dtype=torch.int32, device="cuda")
         sets = [cs._decode_inputs(b, s, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
@@ -218,6 +272,7 @@ def main() -> int:
                              check=True).stdout.strip())
     if args.sweep:
         sweep_chunks()
+        sweep_bwd_splits()
     if args.train:
         train_yardsticks()
     if args.scans:

@@ -39,12 +39,22 @@
 // unit, atomic per element, so the summation order varies between runs).
 // Head dims above 128 (padded to 192 or 256) do not fit that shape: dK and
 // dV of 64 kv rows over 256 dims are 256 fp32 registers a thread, and K, V
-// and two stages of Q and dO 256 KB. There a block owns 64 kv rows; both
-// consumer warpgroups form the same S^T and dP^T (those two products are
-// done twice), and each keeps dK and dV for its half of the 64-wide d chunks
-// (128 values a thread at 256) and forms dQ for the same chunks, added to
-// the buffer by fp32 atomics from registers (no shared staging: 208 KB of
-// tiles leave no room for it).
+// and two stages of Q and dO take 256 KB at 128 kv rows. There
+// (flash_bwd_wide_kernel) a block owns 64 kv rows and the two consumer
+// warpgroups split the products, so that each is formed once: the first
+// forms S^T and P^T, the second dP^T and dS^T = P^T (dP^T - D) from P^T read
+// back as bf16, and each passes its bf16 result to the other through shared
+// memory; each keeps dK and dV for half the 64-wide d chunks (128 values a
+// thread at 256) and forms dQ for the same chunks. One kv head (MQA) leaves
+// too few kv tiles to fill the card, so a work item takes a share of its
+// group's query heads (the wrapper's bwd_plan: at gemma-2b's training shape,
+// 8 items of one head each for every kv tile), and where the group is split,
+// the items add their dK and dV partials to fp32 buffers that a cast pass
+// scales and casts. Nothing goes out by per-element atomics: dQ's partials
+// (and dK and dV's) are staged in the warpgroup's own chunks of the Q and dO
+// stage, which its products no longer read (beside 208 KB of tiles there is
+// room for one of the tile's four 16 KB chunks, not for all), and added by
+// bulk reduce-adds of 4 KB a warp.
 // fp32 takes scalar FMAs (one block per 32-row kv tile, tiles held in shared
 // memory, dQ by atomicAdd); only fp32 training runs it.
 #include "common.cuh"
@@ -286,8 +296,8 @@ __global__ void cast_f32_kernel(const float* __restrict__ src, float* __restrict
 constexpr int kBwStages = 2;     // Q/dO tiles in the ring
 constexpr int kBwThreads = 384;  // one producer warpgroup, two consumer warpgroups
 
-// kv rows of a block at padded head dim kD: two warpgroups of 64, or one set
-// of 64 that both share above 128 dims.
+// kv rows of a block at padded head dim kD: two warpgroups of 64 up to 128
+// dims; above, one set of 64 that the two warpgroups share.
 template <int kD>
 __host__ __device__ constexpr int bw_rows() {
   return kD > 128 ? 64 : 128;
@@ -297,15 +307,14 @@ __host__ __device__ constexpr int bw_rows() {
 // width) and starts 1024-byte aligned, as the wgmma descriptors assume.
 template <int kD>
 struct alignas(1024) BwShared {
+  static_assert(kD <= 128, "head dims above 128 take BwWideShared");
   static constexpr int kBN = bw_rows<kD>();
-  static constexpr int kDqBufs = kD > 128 ? 1 : 2;        // above 128: dQ by atomics, unused
-  static constexpr int kDqLen = kD > 128 ? 4 : kTileQ * 64;
   bf16 k[kD / 64][kBN * 64];                      // [d chunk][kv rows x 64]
   bf16 v[kD / 64][kBN * 64];
   bf16 q[kBwStages][kD / 64][kTileQ * 64];        // [stage][d chunk][q rows x 64]
   bf16 dout[kBwStages][kD / 64][kTileQ * 64];
   bf16 ds[2][kBN * kTileQ];                       // dS^T [kv][q], swizzled, double-buffered
-  float dq[kDqBufs][kDqLen];                      // [warpgroup] dQ partial, swizzled
+  float dq[2][kTileQ * 64];                       // [warpgroup] dQ partial, swizzled
   float lse[kBwStages][kTileQ];                   // log2(e) * lse of the tile's rows
   float dsum[kBwStages][kTileQ];
   uint64_t kv_full;
@@ -350,13 +359,10 @@ __device__ __forceinline__ BwWork bw_work(int item, int kh, int b, int sq, int c
 // (query head, query tile) with their lse and D through a 2-stage ring, each
 // stage guarded by a full (bytes landed) and an empty (both consumers done)
 // mbarrier. Warpgroups 1 and 2 each own 64 kv rows and keep dK and dV in
-// fp32 registers over the whole item. kD is the head dim padded to 64, 128,
-// 192 or 256; TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied
-// only on tiles that a diagonal, a window edge or a ragged end cuts. At kD =
-// 64 the first warpgroup alone computes dQ (64 columns). Above 128 (kWide)
-// the block holds 64 kv rows that both warpgroups score; warpgroup wg owns
-// the d chunks [wg * kOwn, (wg + 1) * kOwn) of dK, dV and dQ (at 192 the
-// second owns one chunk, the first two).
+// fp32 registers over the whole item. kD is the head dim padded to 64 or
+// 128; TMA zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on
+// tiles that a diagonal, a window edge or a ragged end cuts. At kD = 64 the
+// first warpgroup alone computes dQ (64 columns).
 template <int kD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -369,9 +375,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int kh, int dh, int dv, int causal, int window, float scale,
                        float scale_log2) {
   constexpr int kChunks = kD / 64;
-  constexpr bool kWide = kD > 128;
   constexpr int kBN = bw_rows<kD>();
-  constexpr int kOwn = kWide ? 2 : kChunks;    // d chunks of dK and dV a warpgroup keeps
   constexpr uint32_t kKvBytes = 2 * kChunks * kBN * 128;
   constexpr uint32_t kStageBytes = 2 * kChunks * kTileQ * 128 + 2 * kTileQ * 4;
   extern __shared__ unsigned char smem_raw[];
@@ -427,17 +431,14 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = t % 32;
     const int quad = lane % 4;
     const int rl = (t / 32) * 16 + lane / 4;   // this thread's first row of 64
-    const int kw = kWide ? 0 : 64 * wg;        // first kv row of this warpgroup in the block
+    const int kw = 64 * wg;                    // first kv row of this warpgroup in the block
     const int kw0 = w.kv0 + kw;
     const bool with_dq = kD == 128 || wg == 0;
     const int dq_chunk = kD == 128 ? wg : 0;   // dQ's 64 columns of this warpgroup
-    const int c0 = kWide ? wg * kOwn : 0;      // first d chunk of dK and dV kept here
-    // d chunks kept here: kOwn, but one at 192 for the second warpgroup
-    const int nown = kWide ? min(kOwn, kChunks - c0) : kChunks;
-    float dkacc[kOwn * 32];                    // dK: 64 x 64 kOwn over the warpgroup
-    float dvacc[kOwn * 32];
+    float dkacc[kD / 2];                       // dK: 64 x kD over the warpgroup
+    float dvacc[kD / 2];
 #pragma unroll
-    for (int i = 0; i < kOwn * 32; ++i) dkacc[i] = dvacc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
     if (iters > 0) hopper::mbar_wait(&sm.kv_full, 0);
 
     for (int it = 0; it < iters; ++it) {
@@ -517,148 +518,91 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q: B read MN-major (q rows of d values),
-      // over this warpgroup's d chunks
+      // dV += P^T dO and dK += dS^T Q: B read MN-major (q rows of d values)
       hopper::fence_regs(dvacc);
       hopper::fence_regs(dkacc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        // chunk c0 + c of the stage's dO, rows 16 kk on; the chunks lie kTileQ x 128 B apart
-        const auto chunk = [&](int c) {
-          return hopper::sw128_desc(&sm.dout[st][c0 + c][kk * 16 * 64], kTileQ * 128, 1024);
-        };
-        if (nown == kOwn) {
-          hopper::wgmma_rs_over_d<64 * kOwn>(dvacc, pa[kk], chunk);
-        } else {
-          hopper::wgmma_rs_m64n64k16<0>(dvacc, pa[kk], chunk(0));
-        }
+        // chunk c of the stage's dO, rows 16 kk on; the chunks lie kTileQ x 128 B apart
+        hopper::wgmma_rs_over_d<kD>(dvacc, pa[kk], [&](int c) {
+          return hopper::sw128_desc(&sm.dout[st][c][kk * 16 * 64], kTileQ * 128, 1024);
+        });
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const auto chunk = [&](int c) {
-          return hopper::sw128_desc(&sm.q[st][c0 + c][kk * 16 * 64], kTileQ * 128, 1024);
-        };
-        if (nown == kOwn) {
-          hopper::wgmma_rs_over_d<64 * kOwn>(dkacc, da[kk], chunk);
-        } else {
-          hopper::wgmma_rs_m64n64k16<0>(dkacc, da[kk], chunk(0));
-        }
+        hopper::wgmma_rs_over_d<kD>(dkacc, da[kk], [&](int c) {
+          return hopper::sw128_desc(&sm.q[st][c][kk * 16 * 64], kTileQ * 128, 1024);
+        });
       }
       hopper::wgmma_commit();
 
       // dS^T to shared memory, [kv][q] rows of 128 bytes in the 128-byte
       // swizzle (16-byte chunk c of row r at c ^ (r % 8)), for both warpgroups'
       // dQ; the buffer alternates, so one barrier a tile keeps it safe.
-      // (Above 128 dims both warpgroups hold the same dS^T: the first writes it.)
       unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.ds[it & 1]);
-      if (!kWide || wg == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = kw + rl + 8 * r;
+          *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
+              da[j >> 1][((j & 1) << 1) | r];
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1, 256);
+
+      // dQ (64 q x 64 d) = dS K over the tile's 128 kv rows: dS^T read as an
+      // MN-major A, K as an MN-major B
+      float dqa[32];  // dQ: 64 q x 64 d
+      if (with_dq) {
+        hopper::fence_regs(dqa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBN * 128, 1024);
+          const uint64_t bk =
+              hopper::sw128_desc(&sm.k[dq_chunk][kk * 16 * 64], kBN * 128, 1024);
+          hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
+        }
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dvacc);
+      hopper::fence_regs(dkacc);
+      hopper::fence_regs(dqa);
+      hopper::keep_regs(pa);
+      hopper::keep_regs(da);
+      hopper::mbar_arrive(&sm.empty[st]);
+
+      // dQ's partial to the fp32 buffer (B, H, kD/64, sq_pad, 64), rows
+      // swizzled as in shared memory, by one bulk reduce-add
+      if (with_dq) {
+        float* dqs = sm.dq[wg];
+        if (t == 0) hopper::bulk_wait_read<0>();
+        hopper::named_sync(2 + wg, 128);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const int row = kw + rl + 8 * r;
-            *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
-                da[j >> 1][((j & 1) << 1) | r];
+            const int row = rl + 8 * r;
+            *reinterpret_cast<float2*>(&dqs[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
+                make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
           }
         }
         hopper::fence_proxy_async();
-      }
-      hopper::named_sync(1, 256);
-
-      if constexpr (kWide) {
-        // dQ (64 q x 64 d) = dS K over the block's 64 kv rows, one d chunk of
-        // this warpgroup at a time, added to the buffer (B, H, kD/64, sq_pad,
-        // 64) at the swizzled places the cast reads
-        float dqa[32];
-#pragma unroll
-        for (int c = 0; c < kOwn; ++c) {
-          if (c >= nown) break;
-          hopper::fence_regs(dqa);
-          hopper::wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBN / 16; ++kk) {
-            const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBN * 128, 1024);
-            const uint64_t bk =
-                hopper::sw128_desc(&sm.k[c0 + c][kk * 16 * 64], kBN * 128, 1024);
-            hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
-          }
-          hopper::wgmma_commit();
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(dqa);
-          if (c == 0) {   // dV and dK's products are done with the stage too
-            hopper::fence_regs(dvacc);
-            hopper::fence_regs(dkacc);
-            hopper::keep_regs(pa);
-            hopper::keep_regs(da);
-            hopper::mbar_arrive(&sm.empty[st]);
-          }
+        hopper::named_sync(2 + wg, 128);
+        if (t == 0) {
           const int64_t row0 =
-              ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + c0 + c) * sq_pad + q0;
+              ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + dq_chunk) * sq_pad + q0;
           float* dst = dq_acc + row0 * 64;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int row = rl + 8 * r;
-              float* at = dst + row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad;
-              atomicAdd(at, dqa[4 * j + 2 * r]);
-              atomicAdd(at + 1, dqa[4 * j + 2 * r + 1]);
-            }
-          }
-        }
-      } else {
-        // dQ (64 q x 64 d) = dS K over the tile's 128 kv rows: dS^T read as an
-        // MN-major A, K as an MN-major B
-        float dqa[32];  // dQ: 64 q x 64 d
-        if (with_dq) {
-          hopper::fence_regs(dqa);
-          hopper::wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBN / 16; ++kk) {
-            const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kBN * 128, 1024);
-            const uint64_t bk =
-                hopper::sw128_desc(&sm.k[dq_chunk][kk * 16 * 64], kBN * 128, 1024);
-            hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
-          }
-          hopper::wgmma_commit();
-        }
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(dvacc);
-        hopper::fence_regs(dkacc);
-        hopper::fence_regs(dqa);
-        hopper::keep_regs(pa);
-        hopper::keep_regs(da);
-        hopper::mbar_arrive(&sm.empty[st]);
-
-        // dQ's partial to the fp32 buffer (B, H, kD/64, sq_pad, 64), rows
-        // swizzled as in shared memory, by one bulk reduce-add
-        if (with_dq) {
-          float* dqs = sm.dq[wg];
-          if (t == 0) hopper::bulk_wait_read<0>();
-          hopper::named_sync(2 + wg, 128);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int row = rl + 8 * r;
-              *reinterpret_cast<float2*>(&dqs[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
-                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
-            }
-          }
-          hopper::fence_proxy_async();
-          hopper::named_sync(2 + wg, 128);
-          if (t == 0) {
-            const int64_t row0 =
-                ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + dq_chunk) * sq_pad + q0;
-            float* dst = dq_acc + row0 * 64;
-            hopper::bulk_reduce_add(dst, dqs, kTileQ * 64 * 4);
-            hopper::bulk_commit();
-          }
+          hopper::bulk_reduce_add(dst, dqs, kTileQ * 64 * 4);
+          hopper::bulk_commit();
         }
       }
     }
-    if (!kWide && with_dq && t == 0) hopper::bulk_wait<0>();
+    if (with_dq && t == 0) hopper::bulk_wait<0>();
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -668,9 +612,8 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       bf16* dkrow = dk + at * dh;
       bf16* dvrow = dvo + at * dv;
 #pragma unroll
-      for (int j = 0; j < kOwn * 8; ++j) {
-        if (j >= nown * 8) break;
-        const int d = c0 * 64 + j * 8 + 2 * quad;
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = j * 8 + 2 * quad;
         store2(dkrow, d, dh, dkacc[4 * j + 2 * r] * scale, dkacc[4 * j + 2 * r + 1] * scale);
         store2(dvrow, d, dv, dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
       }
@@ -678,9 +621,398 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 above 128 head dims (padded to 192 or 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = bw_rows<256>();   // kv rows of a wide block: 64
+constexpr int kBarP = 4;    // named barriers of the wide kernel (2 and 3: each
+constexpr int kBarDs = 5;   // warpgroup's own): P^T written, dS^T written
+
+template <int kD>
+struct alignas(1024) BwWideShared {
+  bf16 k[kD / 64][kWideRows * 64];                // [d chunk][kv rows x 64]
+  bf16 v[kD / 64][kWideRows * 64];
+  bf16 q[kBwStages][kD / 64][kTileQ * 64];        // [stage][d chunk][q rows x 64]
+  bf16 dout[kBwStages][kD / 64][kTileQ * 64];
+  bf16 pt[kWideRows * kTileQ];                    // P^T [kv][q], swizzled
+  bf16 ds[kWideRows * kTileQ];                    // dS^T [kv][q], swizzled
+  float lse[kBwStages][kTileQ];                   // log2(e) * lse of the tile's rows
+  float dsum[kBwStages][kTileQ];
+  uint64_t kv_full;
+  uint64_t full[kBwStages];
+  uint64_t empty[kBwStages];   // every consumer warp is done with the stage
+};
+
+// A warpgroup's 64 x 64 fp32 fragment as bf16 wgmma A operands: k-step kk
+// covers columns 16 kk + [0, 16).
+__device__ __forceinline__ void pack_frag(uint32_t (&f)[4][4], const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[kk][j] = pack2(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+  }
+}
+
+// Such A operands to or from a [row][col] tile of 128-byte rows in the
+// 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)).
+__device__ __forceinline__ void frag_store(unsigned char* tile, const uint32_t (&f)[4][4],
+                                           int rl, int quad) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      *reinterpret_cast<uint32_t*>(tile + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4) =
+          f[j >> 1][((j & 1) << 1) | r];
+    }
+  }
+}
+
+__device__ __forceinline__ void frag_load(const unsigned char* tile, uint32_t (&f)[4][4],
+                                          int rl, int quad) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      f[j >> 1][((j & 1) << 1) | r] = *reinterpret_cast<const uint32_t*>(
+          tile + row * 128 + ((j ^ (row & 7)) << 4) + quad * 4);
+    }
+  }
+}
+
+// A warp's 16 rows of the 64 x 64 fp32 fragment at values [32 c, 32 c + 32)
+// of acc into a 4 KB piece of 16 rows of 64, in the layout of the fp32
+// buffers the cast reads (32-byte block j of row r at j ^ (r % 8)).
+template <int N>
+__device__ __forceinline__ void piece_store(float* piece, const float (&acc)[N], int c,
+                                            int lane) {
+  const int quad = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lane / 4 + 8 * r;
+      *reinterpret_cast<float2*>(&piece[row * 64 + ((j ^ (row & 7)) << 3) + 2 * quad]) =
+          make_float2(acc[32 * c + 4 * j + 2 * r], acc[32 * c + 4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// One block per work item: 64 kv rows of one (kv head, batch) and `heads`
+// query heads of its group (the last item of a group takes the rest), items
+// of a kv tile adjacent and the longest (causal) first. The producer
+// warpgroup streams Q and dO as in flash_bwd_wgmma_kernel. Each product is
+// formed once a tile: warpgroup 0 forms S^T = K Q^T and P^T, warpgroup 1
+// dP^T = V dO^T and, from P^T read back as bf16, dS^T = P^T (dP^T - D);
+// each passes its bf16 result to the other through shared memory (named
+// barriers kBarP and kBarDs). Warpgroup wg keeps dK and dV for the d chunks
+// [2 wg, 2 wg + 2) (at 192 the second keeps one) and forms dQ = dS K for the
+// same chunks. dQ goes to its fp32 buffer by bulk reduce-adds staged in this
+// warpgroup's own chunks of the tile's Q and dO stage, which its products no
+// longer read; the stage returns to the producer once those adds have read
+// it. When the group is split (heads < H / KH), dK and dV go to fp32 buffers
+// the same way, staged in the warpgroup's chunks of both stages, and a cast
+// pass scales dK and casts both; else they are stored directly.
+template <int kD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse2, const float* __restrict__ dsum,
+                      float* __restrict__ dq_acc, float* __restrict__ dk_acc,
+                      float* __restrict__ dv_acc, bf16* __restrict__ dk,
+                      bf16* __restrict__ dvo, int b, int sq, int sq_pad, int skv, int skv_pad,
+                      int h, int kh, int dh, int dv, int heads, int causal, int window,
+                      float scale, float scale_log2) {
+  static_assert(kD == 192 || kD == 256, "the wide instances");
+  constexpr int kChunks = kD / 64;
+  constexpr int kOwn = 2;                         // d chunks a warpgroup keeps
+  constexpr uint32_t kKvBytes = 2 * kChunks * kWideRows * 128;
+  constexpr uint32_t kStageBytes = 2 * kChunks * kTileQ * 128 + 2 * kTileQ * 4;
+  constexpr uint32_t kPieceBytes = 16 * 64 * 4;   // a warp's 16 fp32 rows of a chunk
+  extern __shared__ unsigned char smem_raw[];
+  BwWideShared<kD>& sm = *reinterpret_cast<BwWideShared<kD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int group = h / kh;
+  const int splits = (group + heads - 1) / heads;
+  const BwWork w = bw_work<kWideRows>(blockIdx.x / splits, kh, b, sq, causal, window);
+  const int g0 = (blockIdx.x % splits) * heads;   // the item's first head in the group
+  const int hq0 = w.kvh * group + g0;
+  const int iters = min(heads, group - g0) * w.nq;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    for (int st = 0; st < kBwStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], 2 * 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------- producer warpgroup ----------------
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0 && iters > 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      hopper::tma_prefetch_map(&tdo);
+      hopper::mbar_arrive_expect_tx(&sm.kv_full, kKvBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        hopper::tma_load_4d(sm.k[c], &tk, &sm.kv_full, c * 64, w.kv0, w.kvh, w.bi);
+        hopper::tma_load_4d(sm.v[c], &tv, &sm.kv_full, c * 64, w.kv0, w.kvh, w.bi);
+      }
+      for (int it = 0; it < iters; ++it) {
+        const int st = it % kBwStages;
+        const int hq = hq0 + it / w.nq;
+        const int q0 = (w.qt0 + it % w.nq) * kTileQ;
+        hopper::mbar_wait(&sm.empty[st], ((it / kBwStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          hopper::tma_load_4d(sm.q[st][c], &tq, &sm.full[st], c * 64, q0, hq, w.bi);
+          hopper::tma_load_4d(sm.dout[st][c], &tdo, &sm.full[st], c * 64, q0, hq, w.bi);
+        }
+        const int64_t row = (static_cast<int64_t>(w.bi) * h + hq) * sq_pad + q0;
+        hopper::bulk_load(sm.lse[st], lse2 + row, kTileQ * 4, &sm.full[st]);
+        hopper::bulk_load(sm.dsum[st], dsum + row, kTileQ * 4, &sm.full[st]);
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    hopper::reg_alloc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int quad = lane % 4;
+    const int rl = warp * 16 + lane / 4;       // this thread's first row of 64
+    const int c0 = wg * kOwn;                  // first d chunk kept here
+    const int nown = min(kOwn, kChunks - c0);  // d chunks kept here: 2, or 1 at 192
+    unsigned char* ptb = reinterpret_cast<unsigned char*>(sm.pt);
+    unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.ds);
+    float dkacc[kOwn * 32];                    // dK: 64 kv x 64 nown d over the warpgroup
+    float dvacc[kOwn * 32];
+#pragma unroll
+    for (int i = 0; i < kOwn * 32; ++i) dkacc[i] = dvacc[i] = 0.f;
+    // d (64 kv x 64 nown d) += a (64 kv x 64 q, bf16 A fragments) * this
+    // warpgroup's d chunks of a stage's Q or dO tile (q rows, read MN-major),
+    // committed as one group
+    const auto rs_own = [&](float(&d)[kOwn * 32], const uint32_t(&a)[4][4],
+                            bf16(*tile)[kTileQ * 64]) {
+      hopper::fence_regs(d);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const auto chunk = [&](int c) {   // the chunks lie kTileQ x 128 B apart
+          return hopper::sw128_desc(&tile[c0 + c][kk * 16 * 64], kTileQ * 128, 1024);
+        };
+        if (nown == kOwn) {
+          hopper::wgmma_rs_over_d<64 * kOwn>(d, a[kk], chunk);
+        } else {
+          hopper::wgmma_rs_m64n64k16<0>(d, a[kk], chunk(0));
+        }
+      }
+      hopper::wgmma_commit();
+    };
+    if (iters > 0) hopper::mbar_wait(&sm.kv_full, 0);
+
+    for (int it = 0; it < iters; ++it) {
+      const int st = it % kBwStages;
+      const int hq = hq0 + it / w.nq;
+      const int q0 = (w.qt0 + it % w.nq) * kTileQ;
+      hopper::mbar_wait(&sm.full[st], (it / kBwStages) & 1);
+
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), 64 kv x 64
+      // q over kD, both operands K-major in shared memory
+      float acc[32];
+      {
+        const bf16(*ta)[kWideRows * 64] = wg == 0 ? sm.k : sm.v;
+        const bf16(*tb)[kTileQ * 64] = wg == 0 ? sm.q[st] : sm.dout[st];
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          const uint64_t da = hopper::sw128_desc(&ta[kk / 4][(kk % 4) * 16], 16, 1024);
+          const uint64_t db = hopper::sw128_desc(&tb[kk / 4][(kk % 4) * 16], 16, 1024);
+          hopper::wgmma_ss_m64n64k16<0, 0>(acc, da, db, kk > 0);
+        }
+        hopper::wgmma_commit();
+      }
+      // the previous tile's stage goes back to the producer once the bulk
+      // reduce-adds have read the dQ this warp staged in it
+      if (it > 0 && lane == 0) {
+        hopper::bulk_wait_read<0>();
+        hopper::mbar_arrive(&sm.empty[(it - 1) % kBwStages]);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+
+      // Value i of a 64 x 64 fragment sits at row rl + 8 ((i >> 1) & 1), column
+      // 8 (i >> 2) + 2 quad + (i & 1). P^T and dS^T as bf16 A fragments:
+      uint32_t pa[4][4];
+      uint32_t da[4][4];
+      if (wg == 0) {
+        const bool cut = q0 + kTileQ > sq || w.kv0 + 64 > skv ||
+                         (causal && q0 < w.kv0 + 63) ||
+                         (window > 0 && w.kv0 <= q0 + kTileQ - 1 - window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][8 * j + 2 * quad]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = hopper::exp2_approx(acc[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+            if (cut) {
+              const int kv = w.kv0 + rl + 8 * (e >> 1);
+              const int qp = q0 + 8 * j + 2 * quad + (e & 1);
+              const bool live = (kv < skv) & (qp < sq) & (!causal | (kv <= qp)) &
+                                ((window <= 0) | (kv > qp - window));
+              p = live ? p : 0.f;
+            }
+            acc[i] = p;
+          }
+        }
+        pack_frag(pa, acc);
+        frag_store(ptb, pa, rl, quad);   // read by warpgroup 1's threads only
+        hopper::named_arrive(kBarP, 256);
+
+        rs_own(dvacc, pa, sm.dout[st]);   // dV += P^T dO, while warpgroup 1 forms dS^T
+        hopper::named_sync(kBarDs, 256);
+        frag_load(dsb, da, rl, quad);
+      } else {
+        hopper::named_sync(kBarP, 256);
+        frag_load(ptb, pa, rl, quad);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(&sm.dsum[st][8 * j + 2 * quad]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const uint32_t u = pa[i >> 3][(i >> 1) & 3];
+            const float p = __uint_as_float((i & 1) ? (u & 0xffff0000u) : (u << 16));
+            acc[i] = p * (acc[i] - ((e & 1) ? d2.y : d2.x));
+          }
+        }
+        pack_frag(da, acc);
+        frag_store(dsb, da, rl, quad);   // and read by both warpgroups' dQ products
+        hopper::fence_proxy_async();
+        hopper::named_arrive(kBarDs, 256);
+
+        rs_own(dvacc, pa, sm.dout[st]);   // dV += P^T dO
+      }
+
+      rs_own(dkacc, da, sm.q[st]);   // dK += dS^T Q
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dvacc);
+      hopper::fence_regs(dkacc);
+      hopper::keep_regs(pa);
+      hopper::keep_regs(da);
+
+      // Every product of this warpgroup is done with its chunks of the stage
+      // (the other warpgroup's S^T or dP^T were done before its handshake), so
+      // they take dQ: warp w's 16 rows of chunk c0 + c in the 4 KB at row 16
+      // (w % 2) of the stage's Q (warps 0-1) or dO (2-3) sub-tile c0 + c, added
+      // to the buffer (B, H, kD/64, sq_pad, 64) by one bulk reduce-add each.
+      hopper::named_sync(2 + wg, 128);
+      bf16(*stage)[kTileQ * 64] = warp < 2 ? sm.q[st] : sm.dout[st];
+#pragma unroll
+      for (int c = 0; c < kOwn; ++c) {
+        if (c >= nown) break;
+        // dQ (64 q x 64 d) = dS K over the block's 64 kv rows, one d chunk at
+        // a time: dS^T read as an MN-major A, K as an MN-major B
+        float dqa[32];
+        hopper::fence_regs(dqa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWideRows / 16; ++kk) {
+          const uint64_t a = hopper::sw128_desc(dsb + kk * 16 * 128, kWideRows * 128, 1024);
+          const uint64_t bk =
+              hopper::sw128_desc(&sm.k[c0 + c][kk * 16 * 64], kWideRows * 128, 1024);
+          hopper::wgmma_ss_m64n64k16<1, 1>(dqa, a, bk, kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dqa);
+        piece_store(reinterpret_cast<float*>(stage[c0 + c]) + (warp & 1) * 1024, dqa, 0, lane);
+      }
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        for (int c = 0; c < nown; ++c) {
+          const int64_t row0 =
+              ((static_cast<int64_t>(w.bi) * h + hq) * kChunks + c0 + c) * sq_pad + q0 +
+              16 * warp;
+          hopper::bulk_reduce_add(
+              dq_acc + row0 * 64,
+              reinterpret_cast<const float*>(stage[c0 + c]) + (warp & 1) * 1024, kPieceBytes);
+        }
+        hopper::bulk_commit();
+      }
+    }
+    if (lane == 0) hopper::bulk_wait_read<0>();
+
+    if (heads >= group) {
+      // the item saw the whole group: dK and dV go out directly
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kv = w.kv0 + rl + 8 * r;
+        if (kv >= skv) continue;
+        const int64_t at = (static_cast<int64_t>(w.bi) * skv + kv) * kh + w.kvh;
+        bf16* dkrow = dk + at * dh;
+        bf16* dvrow = dvo + at * dv;
+#pragma unroll
+        for (int j = 0; j < kOwn * 8; ++j) {
+          if (j >= nown * 8) break;
+          const int d = c0 * 64 + j * 8 + 2 * quad;
+          store2(dkrow, d, dh, dkacc[4 * j + 2 * r] * scale, dkacc[4 * j + 2 * r + 1] * scale);
+          store2(dvrow, d, dv, dvacc[4 * j + 2 * r], dvacc[4 * j + 2 * r + 1]);
+        }
+      }
+    } else if (iters > 0) {
+      // the item's partials of dK and dV to the fp32 buffers (B, KH, kD/64,
+      // skv_pad, 64), staged in this warpgroup's chunks of both stages (warp
+      // w: stage w / 2, rows 16 (w % 2) on), once every warp's dQ is read
+      hopper::named_sync(2 + wg, 128);
+#pragma unroll
+      for (int c = 0; c < kOwn; ++c) {
+        if (c >= nown) break;
+        piece_store(reinterpret_cast<float*>(sm.q[warp >> 1][c0 + c]) + (warp & 1) * 1024,
+                    dkacc, c, lane);
+        piece_store(reinterpret_cast<float*>(sm.dout[warp >> 1][c0 + c]) + (warp & 1) * 1024,
+                    dvacc, c, lane);
+      }
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        for (int c = 0; c < nown; ++c) {
+          const int64_t row0 =
+              ((static_cast<int64_t>(w.bi) * kh + w.kvh) * kChunks + c0 + c) * skv_pad + w.kv0 +
+              16 * warp;
+          hopper::bulk_reduce_add(
+              dk_acc + row0 * 64,
+              reinterpret_cast<const float*>(sm.q[warp >> 1][c0 + c]) + (warp & 1) * 1024,
+              kPieceBytes);
+          hopper::bulk_reduce_add(
+              dv_acc + row0 * 64,
+              reinterpret_cast<const float*>(sm.dout[warp >> 1][c0 + c]) + (warp & 1) * 1024,
+              kPieceBytes);
+        }
+        hopper::bulk_commit();
+      }
+    }
+    if (lane == 0) hopper::bulk_wait<0>();
+  }
+}
+
 // dq (B,Sq,H,Dh) bf16 = scale * the (B, H, kD/64, sq_pad, 64) fp32 buffer,
 // un-swizzling each row: a thread takes 8 consecutive d of one row, one
-// 32-byte piece of the buffer (two 16-byte loads) and one 16-byte store.
+// 32-byte piece of the buffer (two 16-byte loads) and one 16-byte store. The
+// wide kernel's split dK and dV buffers, (B, KH, kD/64, skv_pad, 64), are
+// cast by the same kernel.
 __global__ void cast_dq_kernel(const float* __restrict__ src, bf16* __restrict__ dq, int sq,
                                int sq_pad, int h, int dh, int chunks, float scale, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -743,6 +1075,50 @@ int launch_wgmma(const long long* st, const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int launch_wide(const long long* st, const void* q, const void* k, const void* v,
+                const void* dout, const float* lse2, const float* dsum, float* dq_acc,
+                float* dkv_acc, void* dq, void* dk, void* dv_out, int b, int sq, int sq_pad,
+                int skv, int h, int kh, int dh, int dv, int heads, int causal, int window,
+                float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, st[0], st[1], st[2], kTileQ) ||
+      !hopper::encode_bshd(&tk, k, b, skv, kh, dh, st[3], st[4], st[5], kWideRows) ||
+      !hopper::encode_bshd(&tv, v, b, skv, kh, dv, st[6], st[7], st[8], kWideRows) ||
+      !hopper::encode_bshd(&tdo, dout, b, sq, h, dv, st[12], st[13], st[14], kTileQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = static_cast<int>(sizeof(BwWideShared<kD>)) + 1024;
+  auto kernel = flash_bwd_wide_kernel<kD>;
+  static const cudaError_t opt_in =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int group = h / kh;
+  const int splits = (group + heads - 1) / heads;
+  const int skv_pad = (skv + kWideRows - 1) / kWideRows * kWideRows;
+  const int items = skv_pad / kWideRows * kh * b * splits;
+  float* dk_acc = splits > 1 ? dkv_acc : nullptr;
+  float* dv_acc = splits > 1 ? dkv_acc + static_cast<int64_t>(b) * kh * skv_pad * kD : nullptr;
+  kernel<<<items, kBwThreads, kSmem, stream>>>(
+      tq, tk, tv, tdo, lse2, dsum, dq_acc, dk_acc, dv_acc, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv_out), b, sq, sq_pad, skv, skv_pad, h, kh, dh, dv, heads, causal,
+      window, scale, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n = static_cast<int64_t>(b) * sq * h * ((dh + 7) / 8);
+  cast_dq_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(dq), sq, sq_pad, h, dh, kD / 64, scale, n);
+  if (splits > 1) {   // dK and dV from their fp32 buffers, as dQ from its
+    const int64_t nk = static_cast<int64_t>(b) * skv * kh * ((dh + 7) / 8);
+    cast_dq_kernel<<<static_cast<unsigned>((nk + 255) / 256), 256, 0, stream>>>(
+        dk_acc, static_cast<bf16*>(dk), skv, skv_pad, kh, dh, kD / 64, scale, nk);
+    const int64_t nv = static_cast<int64_t>(b) * skv * kh * ((dv + 7) / 8);
+    cast_dq_kernel<<<static_cast<unsigned>((nv + 255) / 256), 256, 0, stream>>>(
+        dv_acc, static_cast<bf16*>(dv_out), skv, skv_pad, kh, dv, kD / 64, 1.f, nv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kDCap>
 int launch_f32(const long long* st, const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* dsum, float* dq_acc, void* dq,
@@ -782,13 +1158,17 @@ int launch_f32(const long long* st, const void* q, const void* k, const void* v,
 // sliding window. bf16 q, k, v and dO must have 16-byte aligned bases and
 // strides (TMA describes them; the wrapper pads inputs that are not), else the
 // call returns cudaErrorInvalidValue without a launch. The caller guarantees
-// 1 <= Dh, Dv <= 256 and H % KH == 0.
+// 1 <= Dh, Dv <= 256 and H % KH == 0. `heads` is the number of query heads a
+// work item of the bf16 kernel takes above 128 dims (the wrapper's bwd_plan;
+// H / KH or more: the whole group); where it is less, dkv_acc is an fp32
+// buffer the caller zeroes, of 2 * B * KH * skv_pad * D_pad values (skv_pad =
+// Skv rounded up to 64). Other calls ignore both.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* dsum, void* lse2, void* dq_acc, void* dq, void* dk,
                                    void* dv_out, int b, int sq, int skv, int h, int kh, int dh,
                                    int dv, const long long* strides, int causal, int window,
-                                   float scale, void* stream) {
+                                   float scale, void* dkv_acc, int heads, void* stream) {
   using namespace repro_torch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh < 1 || dv < 1 || dh > kDMax || dv > kDMax || kh < 1 || h % kh != 0 ||
@@ -820,10 +1200,14 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
     return run(s, q, k, v, dout, l, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh, dh, dv,
                causal, window, scale, st);
   }
-  auto run = dmax > 192   ? launch_wgmma<256>
-             : dmax > 128 ? launch_wgmma<192>
-             : dmax > 64  ? launch_wgmma<128>
-                          : launch_wgmma<64>;
+  if (dmax > 128) {
+    const int group = h / kh;
+    const int per = heads < 1 || heads > group ? group : heads;
+    auto run = dmax > 192 ? launch_wide<256> : launch_wide<192>;
+    return run(s, q, k, v, dout, l2, ds, acc, static_cast<float*>(dkv_acc), dq, dk, dv_out, b,
+               sq, sq_pad, skv, h, kh, dh, dv, per, causal, window, scale, st);
+  }
+  auto run = dmax > 64 ? launch_wgmma<128> : launch_wgmma<64>;
   return run(s, q, k, v, dout, l2, ds, acc, dq, dk, dv_out, b, sq, sq_pad, skv, h, kh, dh, dv,
              causal, window, scale, st);
 }

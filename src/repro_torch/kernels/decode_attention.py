@@ -15,7 +15,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import pad_head_dim, tma_describable
+from .flash_attention import _sm_count, pad_head_dim, tma_describable
 
 D_MAX = 256
 G_MAX = 16
@@ -45,11 +45,6 @@ def aligned_caches(k_cache, v_cache):
     if tma_describable(k_cache) and tma_describable(v_cache):
         return k_cache, v_cache
     return pad_head_dim(k_cache), pad_head_dim(v_cache)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

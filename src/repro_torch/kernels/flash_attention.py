@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +23,15 @@ from . import _build
 
 D_MAX = 256
 BWD_TILE_Q = 64   # csrc/flash_attention_bwd.cu kTileQ: lse, D and dQ's buffer are padded to it
+
+
+class BwdPlan(NamedTuple):
+    """How the bf16 backward cuts its work: blocks of ``block_kv`` kv rows of
+    one kv head, each work item taking ``heads`` of its group's query heads
+    (the last item of a group the rest), ``splits`` items a group."""
+    block_kv: int
+    splits: int
+    heads: int
 
 
 def padded_head_dim(dh: int, dv: int) -> int:
@@ -36,6 +46,25 @@ def bwd_block_kv(dh: int, dv: int) -> int:
     (``csrc/flash_attention_bwd.cu`` ``bw_rows``): 128, or 64 when the padded
     head dim is above 128."""
     return 64 if padded_head_dim(dh, dv) > 128 else 128
+
+
+def bwd_plan(b: int, skv: int, h: int, kh: int, dh: int, dv: int, sms: int) -> BwdPlan:
+    """The bf16 backward's plan. Up to 128 padded head dims a block sees its
+    whole group (128-row blocks fill the card at the training shapes). Above,
+    a block holds 64 kv rows and one block runs on an SM; where the (kv tile,
+    kv head, batch) items are fewer than ``sms``, the group's query heads are
+    split over ``splits`` items of ``heads`` heads each, at least one wave of
+    items (as many as the group allows), the heads spread evenly. The items
+    then add dK and dV to fp32 buffers; ``splits == 1`` writes them
+    directly."""
+    block = bwd_block_kv(dh, dv)
+    group = h // kh
+    items = -(-skv // block) * kh * b
+    if padded_head_dim(dh, dv) <= 128 or items >= sms:
+        return BwdPlan(block, 1, group)
+    want = -(-sms // items)                    # items each group must become
+    splits = -(-group // max(1, group // want))
+    return BwdPlan(block, splits, -(-group // splits))
 
 
 @functools.cache
@@ -53,9 +82,15 @@ def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, q, k, v, sliding_window):
@@ -173,9 +208,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
     gradients come back dense in the inputs' dtype.
 
     Launches the backward kernel (a pre-pass, the main pass and a cast of
-    dq) on PyTorch's current stream; raises for anything it does not take.
-    bf16 inputs that TMA cannot describe go to the same kernel as padded
-    copies (``tma_bwd_inputs``)."""
+    dq, and of dk and dv where ``bwd_plan`` splits a group's query heads) on
+    PyTorch's current stream; raises for anything it does not take. bf16
+    inputs that TMA cannot describe go to the same kernel as padded copies
+    (``tma_bwd_inputs``)."""
     _check("flash_attention_bwd", q, k, v, sliding_window)
     _build.check_tensors("flash_attention_bwd", q, o, do)
     b, sq, h, dh = q.shape
@@ -196,9 +232,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
         dvv.zero_()
     else:
         sq_pad = -(-sq // BWD_TILE_Q) * BWD_TILE_Q
+        d_pad = padded_head_dim(dhp, dvp)
         dsum = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
-        dq_acc = torch.zeros((b, h, sq_pad, padded_head_dim(dhp, dvp)), dtype=torch.float32,
-                             device=q.device)
+        dq_acc = torch.zeros((b, h, sq_pad, d_pad), dtype=torch.float32, device=q.device)
+        heads, dkv_acc = h // kh, None   # dK's and dV's fp32 sums where the group is split
+        if q.dtype == torch.bfloat16:
+            plan = bwd_plan(b, skv, h, kh, dhp, dvp, _sm_count(q.device.index))
+            heads = plan.heads
+            if plan.splits > 1:
+                skv_pad = -(-skv // plan.block_kv) * plan.block_kv
+                dkv_acc = torch.zeros((2, b, kh, skv_pad, d_pad), dtype=torch.float32,
+                                      device=q.device)
         strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                            *o.stride()[:3], *do.stride()[:3])
         with torch.cuda.device(q.device):
@@ -207,7 +251,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, sliding_window=None
                                dsum[0].data_ptr(), dsum[1].data_ptr(), dq_acc.data_ptr(),
                                dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, skv, h, kh,
                                dhp, dvp, strides, int(causal), sliding_window or 0,
-                               float(scale), _build.stream_handle(q.device))
+                               float(scale), None if dkv_acc is None else dkv_acc.data_ptr(),
+                               heads, _build.stream_handle(q.device))
         if err:
             raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
         flash_attention_bwd.launches += 1

@@ -82,18 +82,21 @@ def bwd_query_range(kv0, block_kv, sq, causal, sliding_window):
 
 
 def flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, *, causal=True, sliding_window=None,
-                                  logit_scale=None, block_kv=128, block_q=64):
+                                  logit_scale=None, block_kv=128, block_q=64, head_splits=1):
     """The bf16 backward kernel's work decomposition
-    (``csrc/flash_attention_bwd.cu``) written out plainly, in fp32: blocks of
-    ``block_kv`` kv rows of one kv head, each visiting only the query tiles
-    of ``block_q`` rows its causal and window bounds give (q from the block's
-    first kv row, below its last kv row plus the window), with every query
-    head of its group; dK and dV of a block come from its tiles alone, dQ is
-    summed over the blocks. Masked entries inside a visited tile count 0.
-    Returns (dq, dk, dv) in the inputs' dtype."""
+    (``csrc/flash_attention_bwd.cu``) written out plainly, in fp32: work
+    items of ``block_kv`` kv rows of one kv head and a share of its group's
+    query heads (``head_splits`` items of ceil(G / head_splits) heads, the
+    last the rest, as ``flash_attention.bwd_plan`` cuts them), each visiting
+    only the query tiles of ``block_q`` rows its causal and window bounds give
+    (q from the block's first kv row, below its last kv row plus the window).
+    An item sums dK and dV over its own heads' tiles; the items' partials are
+    then added in turn, and dQ is summed over the kv blocks. Masked entries
+    inside a visited tile count 0. Returns (dq, dk, dv) in the inputs' dtype."""
     b, sq, h, dh = q.shape
     skv, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kh
+    per = -(-g // head_splits)
     scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(dh)
     qf = q.float().reshape(b, sq, kh, g, dh)
     dof = do.float().reshape(b, sq, kh, g, dv)
@@ -107,23 +110,30 @@ def flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, *, causal=True, sliding_w
         kv1 = min(kv0 + block_kv, skv)
         q_begin, q_end = bwd_query_range(kv0, block_kv, sq, causal, sliding_window)
         kvp = torch.arange(kv0, kv1, device=q.device)[None, :]
-        for q0 in range(q_begin // block_q * block_q, q_end, block_q):
-            q1 = min(q0 + block_q, sq)
-            qp = torch.arange(q0, q1, device=q.device)[:, None]
-            mask = torch.ones((q1 - q0, kv1 - kv0), dtype=torch.bool, device=q.device)
-            if causal:
-                mask &= kvp <= qp
-            if sliding_window is not None:
-                mask &= kvp > qp - sliding_window
-            qt, dot = qf[:, q0:q1], dof[:, q0:q1]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qt, kf[:, kv0:kv1]) * scale
-            p = torch.where(mask, torch.exp(s - lse[..., q0:q1, None]),
-                            torch.zeros((), device=q.device))
-            dp = torch.einsum("bqkgd,bskd->bkgqs", dot, vf[:, kv0:kv1])
-            ds = p * (dp - dsum[:, q0:q1].permute(0, 2, 3, 1)[..., None])
-            dvv[:, kv0:kv1] += torch.einsum("bkgqs,bqkgd->bskd", p, dot)
-            dk[:, kv0:kv1] += torch.einsum("bkgqs,bqkgd->bskd", ds, qt)
-            dq[:, q0:q1] += torch.einsum("bkgqs,bskd->bqkgd", ds, kf[:, kv0:kv1])
+        kt, vt = kf[:, kv0:kv1], vf[:, kv0:kv1]
+        for g0 in range(0, g, per):
+            heads = slice(g0, min(g0 + per, g))
+            part_dk = torch.zeros((b, kv1 - kv0, kh, dh), device=q.device)
+            part_dv = torch.zeros((b, kv1 - kv0, kh, dv), device=q.device)
+            for q0 in range(q_begin // block_q * block_q, q_end, block_q):
+                q1 = min(q0 + block_q, sq)
+                qp = torch.arange(q0, q1, device=q.device)[:, None]
+                mask = torch.ones((q1 - q0, kv1 - kv0), dtype=torch.bool, device=q.device)
+                if causal:
+                    mask &= kvp <= qp
+                if sliding_window is not None:
+                    mask &= kvp > qp - sliding_window
+                qt, dot = qf[:, q0:q1, :, heads], dof[:, q0:q1, :, heads]
+                s = torch.einsum("bqkgd,bskd->bkgqs", qt, kt) * scale
+                p = torch.where(mask, torch.exp(s - lse[:, :, heads, q0:q1, None]),
+                                torch.zeros((), device=q.device))
+                dp = torch.einsum("bqkgd,bskd->bkgqs", dot, vt)
+                ds = p * (dp - dsum[:, q0:q1, :, heads].permute(0, 2, 3, 1)[..., None])
+                part_dv += torch.einsum("bkgqs,bqkgd->bskd", p, dot)
+                part_dk += torch.einsum("bkgqs,bqkgd->bskd", ds, qt)
+                dq[:, q0:q1, :, heads] += torch.einsum("bkgqs,bskd->bqkgd", ds, kt)
+            dk[:, kv0:kv1] += part_dk
+            dvv[:, kv0:kv1] += part_dv
     return ((dq * scale).reshape(b, sq, h, dh).to(q.dtype), (dk * scale).to(k.dtype),
             dvv.to(v.dtype))
 

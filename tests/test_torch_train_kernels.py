@@ -1,8 +1,9 @@
 """The Python around the Hopper training kernels, on the CPU.
 
 The bf16 flash backward walks blocks of 128 kv rows (64 when the padded head
-dim is above 128) and query tiles of 64 within its causal and window bounds,
-summing dQ over the blocks; the fused
+dim is above 128, where a block may take a share of its group's query heads
+and add its dK and dV to the others') and query tiles of 64 within its causal
+and window bounds, summing dQ over the blocks; the fused
 cross-entropy forward splits the vocabulary into runs of 256-column tiles and
 merges the splits' partials. ``ref.flash_attention_bwd_tiled_ref``,
 ``ref.xent_split_partials_ref`` and ``ref.xent_combine_ref`` write those
@@ -11,11 +12,13 @@ versions, ``jax.vjp`` of the reference's ``chunked_attention`` and the Pallas
 ``fused_xent`` (interpret mode) on the edges the kernels must get right:
 ragged S and V, window bounds on a tile edge and off it, a GQA group of 5,
 Dv != Dh, the head dims above 128 (160, 192 and 256, and MLA's Dh 192 with
-Dv 128). The wrappers' split plan, their head-dim bounds and their padding
+Dv 128), query heads split over items. The wrappers' split plans, their
+head-dim bounds and their padding
 of operands that TMA cannot read are plain Python too, and are checked here; the kernels
 themselves run in ``chip_smoke.py`` on the card. Inputs come from numpy
 seeds.
 """
+import functools
 import math
 
 import jax
@@ -29,7 +32,7 @@ from repro.kernels.fused_xent import fused_xent as pallas_xent
 from repro.models import layers as JL
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as decode_kernel
-from repro_torch.kernels.flash_attention import (bwd_block_kv, flash_attention,
+from repro_torch.kernels.flash_attention import (bwd_block_kv, bwd_plan, flash_attention,
                                                  flash_attention_bwd, padded_head_dim,
                                                  tma_bwd_inputs, tma_describable)
 from repro_torch.kernels.fused_xent import (TOKENS_PER_BLOCK, VOCAB_TILE, head_rows,
@@ -52,28 +55,45 @@ def npf(x):
     return x.detach().float().numpy()
 
 
-# (label, b, s, h, kh, dh, dv, causal, window): S off the 64/128 tiles, a
-# window whose bound lands on a query-tile edge (65: 127 + 65 = 3 x 64) and
-# one off it, a group of 5, Dv != Dh, no mask; and the head dims above 128
-# (blocks of 64 kv rows): stablelm-12b's 160, nemotron-4-340b's 192 with a
-# window on a tile edge (65: 63 + 65 = 2 x 64), gemma-2b's 256 under MQA,
-# MLA's (192, 128)
+# (label, b, s, h, kh, dh, dv, causal, window, head splits): S off the
+# 64/128 tiles, a window whose bound lands on a query-tile edge (65: 127 + 65
+# = 3 x 64) and one off it, a group of 5, Dv != Dh, no mask; and the head
+# dims above 128 (blocks of 64 kv rows): stablelm-12b's 160, nemotron-4-340b's
+# 192 with a window on a tile edge (65: 63 + 65 = 2 x 64), gemma-2b's 256
+# under MQA, MLA's (192, 128); the wide ones also with their group's query
+# heads split over items, as bwd_plan splits them on the card: gemma's MQA
+# into 2 and 4, groups of 3 that 2 items do not divide (2 heads and 1)
 BWD = [
-    ("causal-ragged", 1, 200, 4, 2, 32, 32, True, None),
-    ("window-on-edge", 1, 320, 2, 1, 16, 16, True, 65),
-    ("window-off-edge", 1, 320, 2, 1, 16, 16, True, 64),
-    ("group-5", 1, 150, 10, 2, 16, 16, True, None),
-    ("dv-ne-dh", 2, 140, 4, 2, 40, 24, True, None),
-    ("bidirectional", 1, 200, 2, 2, 16, 16, False, None),
-    ("wide-160", 1, 150, 4, 2, 160, 160, True, None),
-    ("wide-192-window", 1, 200, 6, 2, 192, 192, True, 65),
-    ("wide-256-mqa", 1, 140, 4, 1, 256, 256, True, None),
-    ("mla-192-128", 1, 130, 2, 2, 192, 128, True, None),
+    ("causal-ragged", 1, 200, 4, 2, 32, 32, True, None, 1),
+    ("window-on-edge", 1, 320, 2, 1, 16, 16, True, 65, 1),
+    ("window-off-edge", 1, 320, 2, 1, 16, 16, True, 64, 1),
+    ("group-5", 1, 150, 10, 2, 16, 16, True, None, 1),
+    ("dv-ne-dh", 2, 140, 4, 2, 40, 24, True, None, 1),
+    ("bidirectional", 1, 200, 2, 2, 16, 16, False, None, 1),
+    ("wide-160", 1, 150, 4, 2, 160, 160, True, None, 1),
+    ("wide-192-window", 1, 200, 6, 2, 192, 192, True, 65, 1),
+    ("wide-256-mqa", 1, 140, 4, 1, 256, 256, True, None, 1),
+    ("mla-192-128", 1, 130, 2, 2, 192, 128, True, None, 1),
+    ("wide-256-mqa-split2", 1, 140, 4, 1, 256, 256, True, None, 2),
+    ("wide-256-mqa-split4", 1, 140, 4, 1, 256, 256, True, None, 4),
+    ("wide-192-window-split2", 1, 200, 6, 2, 192, 192, True, 65, 2),
+    ("mla-192-128-split2", 1, 130, 6, 2, 192, 128, True, None, 2),
 ]
 
 
-@pytest.mark.parametrize("label,b,s,h,kh,dh,dv,causal,window", BWD, ids=[c[0] for c in BWD])
-def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, causal, window):
+@functools.cache
+def reference_vjp(s, causal, window):
+    """The jitted ``jax.vjp`` of the reference's ``chunked_attention``: one
+    compile a shape, shared by the cases that differ only in head splits."""
+    kw = dict(causal=causal, sliding_window=window)
+    return jax.jit(lambda a, c, e, g: jax.vjp(
+        lambda a, c, e: JL.chunked_attention(a, c, e, kv_chunk=s, **kw), a, c, e)[1](g))
+
+
+@pytest.mark.parametrize("label,b,s,h,kh,dh,dv,causal,window,splits", BWD,
+                         ids=[c[0] for c in BWD])
+def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, causal, window,
+                                                 splits):
     q, k, v = rand(1, b, s, h, dh), rand(2, b, s, kh, dh), rand(3, b, s, kh, dv)
     do = rand(4, b, s, h, dv)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
@@ -81,16 +101,15 @@ def test_bwd_tiles_match_plain_and_reference_vjp(label, b, s, h, kh, dh, dv, cau
     o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
     block = bwd_block_kv(dh, dv)
     assert block == (64 if max(dh, dv) > 128 else 128)
-    tiled = ref.flash_attention_bwd_tiled_ref(tq, tk, tv, o, lse, tdo, block_kv=block, **kw)
+    tiled = ref.flash_attention_bwd_tiled_ref(tq, tk, tv, o, lse, tdo, block_kv=block,
+                                              head_splits=splits, **kw)
     plain = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
-    oracle = jax.jit(lambda a, c, e, g: jax.vjp(  # one compile, not one per operation
-        lambda a, c, e: JL.chunked_attention(a, c, e, kv_chunk=s, **kw), a, c, e)[1](g))(
-        q, k, v, do)
+    oracle = reference_vjp(s, causal, window)(q, k, v, do)
     for name, got, want, jwant in zip(("dq", "dk", "dv"), tiled, plain, oracle):
         np.testing.assert_allclose(npf(got), npf(want), rtol=1e-5, atol=1e-5, err_msg=name)
         np.testing.assert_allclose(npf(got), np.asarray(jwant), rtol=1e-4, atol=1e-4,
                                    err_msg=name)
-    if max(dh, dv) > 128:   # the forward it differentiates: the Pallas kernel, one block
+    if max(dh, dv) > 128 and splits == 1:   # the forward: the Pallas kernel, one block
         np.testing.assert_allclose(npf(o), np.asarray(pallas_flash(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=s, block_k=s,
             interpret=True, **kw)), rtol=2e-5, atol=2e-5)
@@ -239,3 +258,41 @@ def test_padded_head_dim_and_bwd_blocks(dh, dv, want):
     columns a row, not 256 for every call) and the backward's kv block."""
     assert padded_head_dim(dh, dv) == want
     assert bwd_block_kv(dh, dv) == (64 if want > 128 else 128)
+
+
+# (label, b, skv, h, kh, dh, dv, splits, heads): one ring worker's training
+# shapes (B=2, S=1024) and chip_smoke.py's kernel cases (B=1, S=256) of the
+# wide configs, and Dh <= 128 shapes, on 132 SMs
+PLANS = [
+    ("gemma-2b-train", 2, 1024, 8, 1, 256, 256, 8, 1),        # 32 items -> 256
+    ("gemma-2b-case", 1, 256, 8, 1, 256, 256, 8, 1),          # 4 -> 32, all it has
+    ("nemotron-train", 2, 1024, 96, 8, 192, 192, 1, 12),      # 256 items already
+    ("nemotron-case", 1, 256, 96, 8, 192, 192, 6, 2),         # 32 -> 192
+    ("nemotron-s1024", 1, 1024, 96, 8, 192, 192, 2, 6),       # 128 -> 256
+    ("stablelm-train", 2, 1024, 32, 8, 160, 160, 1, 4),
+    ("stablelm-case", 1, 256, 32, 8, 160, 160, 4, 1),         # 32 -> 128, the whole group
+    ("mla-case", 1, 300, 8, 8, 192, 128, 1, 1),
+    ("group-7", 3, 1024, 7, 1, 256, 256, 4, 2),               # 48 -> 192: 2, 2, 2, 1
+    ("qwen3-1.7b-train", 2, 1024, 16, 8, 128, 128, 1, 2),
+    ("hymba-d64", 1, 77, 25, 5, 64, 64, 1, 5),
+    ("gemma-like-d128", 1, 256, 8, 1, 128, 128, 1, 8),
+]
+
+
+@pytest.mark.parametrize("label,b,skv,h,kh,dh,dv,splits,heads", PLANS,
+                         ids=[c[0] for c in PLANS])
+def test_bwd_plan_fills_a_wave_above_128_dims(label, b, skv, h, kh, dh, dv, splits, heads):
+    """``bwd_plan``: above 128 padded dims a group's query heads are split
+    over enough items to fill one wave of 132 SMs where the group allows,
+    evenly (the kernel's ceil(G / heads) items, every one with a head); up to
+    128 every shape keeps its 128-row blocks and whole groups."""
+    plan = bwd_plan(b, skv, h, kh, dh, dv, 132)
+    assert (plan.splits, plan.heads) == (splits, heads)
+    assert plan.block_kv == bwd_block_kv(dh, dv)
+    group = h // kh
+    assert -(-group // plan.heads) == plan.splits and (plan.splits - 1) * plan.heads < group
+    items = -(-skv // plan.block_kv) * kh * b
+    if padded_head_dim(dh, dv) <= 128:
+        assert plan.splits == 1 and plan.block_kv == 128
+    else:
+        assert items * plan.splits >= 132 or plan.splits == group
