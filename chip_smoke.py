@@ -174,6 +174,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -257,10 +258,13 @@ def phase_build():
         if spills:   # ptxas reports only on a fresh build
             summary[name]["ptxas_spill_store_bytes"] = sum(int(x) for x in spills)
     print("sass " + json.dumps(summary))
-    for name in ("flash_attention_bwd", "fused_xent"):
+    for name in ("flash_attention", "flash_attention_bwd", "decode_attention", "fused_xent"):
         for fn, report in _ptxas_by_function(logs.get(name, "")).items():
             print(f"  {name} {fn}: {report}")
         print(f"  {name}: SASS LDL {summary[name]['LDL']} STL {summary[name]['STL']}")
+    # the wide forward's consumers hold 240 registers: none may spill
+    check(summary["flash_attention"].get("ptxas_spill_store_bytes", 0) == 0,
+          f"flash_attention: ptxas spills: {summary['flash_attention']}")
     for name in ("flash_attention", "flash_attention_bwd", "fused_xent"):
         fa = summary[name]
         check(fa["HGMMA"] > 0 and fa["UTMALDG"] > 0,
@@ -344,7 +348,13 @@ def wide_flash_cases():
     """Head dims above 128, in fp32 and bf16: gemma-2b's prefill (D 256, MQA),
     stablelm-12b's (D 160), nemotron-4-340b's (D 192, group 12) at a small B
     and S, MLA's prefill head (Dh 192, Dv 128), ragged S, a window, strided
-    (B,H,S,D) storage and bf16 heads TMA cannot read (padded by the wrapper)."""
+    (B,H,S,D) storage and bf16 heads TMA cannot read (padded by the wrapper).
+    In bf16 also the wide instances' edges: S = 1, 79, 81, 113 and 777 (off
+    the 64-row kv tiles and the 128-row query tiles; 777: many kv tiles with
+    both ends ragged), windows that cut a tile, keys that grow along S so
+    that row maxima rise tile after tile (the rescale the kernel skips where
+    no maximum rose), and Dv 132 read in place (an output TMA cannot
+    describe: stores from registers)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
@@ -362,6 +372,16 @@ def wide_flash_cases():
                   (f"wide-bidirectional-{n}", 2, 130, 4, 4, 192, 192, False, None, dtype, "bshd"),
                   (f"wide-strided-bhsd-{n}", 2, 200, 8, 2, 256, 256, True, 64, dtype, "bhsd")]
     cases.append(("wide-unaligned-bf16", 2, 100, 4, 2, 196, 132, True, None, bf16, "bshd"))
+    cases += [("wide-s1-bf16", 2, 1, 8, 1, 256, 256, True, None, bf16, "bshd"),
+              ("wide-s79-bf16", 2, 79, 8, 1, 256, 256, True, None, bf16, "bshd"),
+              ("wide-s81-bf16", 2, 81, 8, 1, 256, 256, True, None, bf16, "bshd"),
+              ("wide-s113-192-bf16", 2, 113, 8, 2, 192, 192, True, None, bf16, "bshd"),
+              ("wide-s777-bf16", 2, 777, 8, 1, 256, 256, True, None, bf16, "bshd"),
+              ("wide-window-256-bf16", 2, 600, 8, 1, 256, 256, True, 100, bf16, "bshd"),
+              ("wide-window-192-bf16", 1, 700, 8, 2, 192, 192, True, 150, bf16, "bshd"),
+              ("wide-rising-256-bf16", 2, 1024, 8, 1, 256, 256, True, None, bf16, "rising"),
+              ("wide-rising-160-bf16", 1, 1024, 32, 8, 160, 160, True, None, bf16, "rising"),
+              ("wide-vsliced-bf16", 2, 200, 8, 2, 256, 132, True, None, bf16, "vsliced")]
     return cases
 
 
@@ -379,11 +399,17 @@ def _hybrid_attn():
 
 
 def _flash_inputs(b, s, h, kh, dh, dv, dtype, layout, gen):
+    import torch
     q = _rand((b, s, h, dh), dtype, gen)
     k = _rand((b, s, kh, dh), dtype, gen)
     v = _rand((b, s, kh, dv), dtype, gen)
     if layout == "bhsd":   # same values, stored head-major: strided (B,S,H,D) views
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    if layout == "rising":   # keys 1x to 4x as long along S: row maxima keep rising
+        ramp = 1 + 3 * torch.arange(s, device=DEVICE, dtype=torch.float32) / s
+        k = (k.float() * ramp[None, :, None, None]).to(dtype)
+    if layout == "vsliced":  # v a view into rows 4 wider: Dv read where it lies
+        v = _rand((b, s, kh, dv + 4), dtype, gen)[..., :dv]
     return q, k, v
 
 
@@ -434,7 +460,11 @@ def wide_decode_cases():
     """Head dims above 128, in fp32 and bf16: gemma-2b's decode (D 256, MQA,
     a group of 8), stablelm-12b's (D 160), nemotron-4-340b's (D 192, a group
     of 12), MLA's head (Dh 192, Dv 128), the split edges at D 256 and the
-    strided and misaligned caches."""
+    strided and misaligned caches. In bf16 also the wide kernel's plan
+    (``decode_wide_plan``) at its edges: a cache that ends one slot into its
+    cluster's last split, n_valid on a split edge and one past it, 0 and past
+    S; S = 1; B x KH far above the SM count (256 one-block clusters); caches
+    long enough for the ring of rounds at 256 and 192 dims."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     s_srv = PROMPT + GEN
@@ -454,7 +484,30 @@ def wide_decode_cases():
                   (f"wide-strided-{n}", 2, 200, 16, 8, 160, 160, [200, 33], dtype, "sliced"),
                   (f"wide-misaligned-{n}", 2, 300, 8, 2, 196, 132, [300, 7], dtype,
                    "misaligned")]
+    bf16 = torch.bfloat16
+    cluster, chunk = _decode_wide_plan(s_srv, 4, 1, 256)[:2]
+    s = (cluster - 1) * chunk + 1
+    check(_decode_wide_plan(s, 4, 1, 256)[:2] == (cluster, chunk),
+          f"wide split edges: the plan moved at S={s}")
+    cases += [("wide-cluster-edge-bf16", 4, s, 8, 1, 256, 256,
+               [s, 2 * chunk, 2 * chunk + 1, 0], bf16, "dense"),
+              ("wide-cluster-past-bf16", 4, s, 8, 1, 256, 256, [s + 100, s - 1, 1, 17], bf16,
+               "dense"),
+              ("wide-s1-bf16", 2, 1, 8, 1, 256, 256, [1, 0], bf16, "dense"),
+              ("wide-many-blocks-bf16", 16, 300, 32, 16, 256, 256,
+               [300 - 19 * i for i in range(15)] + [0], bf16, "dense"),
+              ("wide-ring-256-bf16", 1, 4096, 8, 1, 256, 256, [4000], bf16, "dense"),
+              ("wide-ring-160-bf16", 2, 4096, 16, 2, 160, 160, [4096, 1500], bf16, "dense")]
     return cases
+
+
+def _decode_wide_plan(s, b, kh, d):
+    """The wide flash-decode plan the wrapper makes for a cache of ``s`` slots
+    at (B, KH) and padded head dim ``d`` on this card."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_wide_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return decode_wide_plan(s, b, kh, d, sms)
 
 
 def _decode_chunk(s, b, kh):
@@ -519,7 +572,7 @@ def _err_summary(errs, main, extra=(), wide=()):
     """{name: worst max abs err over every case, "name@main": the error at
     the main path's shape (and "name@label" for each ``extra`` label),
     "name@wide": the worst over the ``wide`` labels (the head dims above 128)
-    and "name@<WIDE_ARCH>": the error at its bf16 case}."""
+    and "name@<arch>": the error at each of ``WIDE_SERVE_ARCHS``' bf16 case}."""
     out = {}
     for (name, label), e in errs.items():
         out[name] = max(out.get(name, 0.0), e)
@@ -529,8 +582,9 @@ def _err_summary(errs, main, extra=(), wide=()):
             out[f"{name}@{label}"] = e
         if label in wide:
             out[f"{name}@wide"] = max(out.get(f"{name}@wide", 0.0), e)
-        if label == f"{WIDE_ARCH}-bfloat16":
-            out[f"{name}@{WIDE_ARCH}"] = e
+        for arch in WIDE_SERVE_ARCHS:
+            if label == f"{arch}-bfloat16":
+                out[f"{name}@{arch}"] = e
     return out
 
 
@@ -3301,34 +3355,36 @@ def phase_wide_ring_vs_single():
 
 
 def phase_wide_timings(errs, launches):
-    """The d_head-256 instances at gemma-2b's shapes, bf16, beside their
-    bounds, their plain versions and ``scaled_dot_product_attention``'s
-    forward, backward alone (and forward and backward together) and decode
-    (a yardstick only: the port never calls it): the flash forward at its
-    prefill (B=4, S=1024, H=8, KH=1), the backward at one ring worker's
-    training shape (B=2), flash-decode over its full serving cache (S=1056).
-    Rows of the ``kernels`` line, named ``<kernel>@gemma-2b``; launches are
-    those of the gemma-2b runs."""
+    """The instances above 128 head dims, bf16, beside their bounds, their
+    plain versions and ``scaled_dot_product_attention``'s forward, backward
+    alone (and forward and backward together) and decode (a yardstick only:
+    the port never calls it): the flash forward at the prefill of each of
+    ``WIDE_SERVE_ARCHS`` (B=4, S=1024: gemma-2b's D 256 under MQA,
+    stablelm-12b's D 160 padded to 192), flash-decode over their full
+    serving caches (S=1056), and the backward at gemma-2b's training shape
+    of one ring worker (B=2). Rows of the ``kernels`` line, named
+    ``<kernel>@<arch>``; launches are those of that arch's runs. The 192
+    backward at nemotron-4-340b's kernel-case shape (B=2, S=1024, H=96,
+    KH=8), on no main path, is printed beside them with its bound, its plain
+    version's time and SDPA's backward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    a = _attn(WIDE_ARCH)
-    h, kh, d = a["h"], a["kh"], a["d"]
     gen = torch.Generator(device=DEVICE).manual_seed(21)
     bf16, elem = torch.bfloat16, 2
     gqa = _sdpa_gqa()
     kw = {"enable_gqa": True} if gqa else {}
     rows = []
 
-    def widen(k, v):
-        return (k, v) if gqa else (k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
+    def widen(k, v, group):
+        return (k, v) if gqa else (k.repeat_interleave(group, 1), v.repeat_interleave(group, 1))
 
-    def row(kernel, source, replaces, shape, ms, plain_ms, lib, nbytes, flops):
-        name = f"{kernel}@{WIDE_ARCH}"
+    def row(kernel, arch, source, replaces, shape, ms, plain_ms, lib, nbytes, flops):
+        name = f"{kernel}@{arch}"
         r = _row(name, source, replaces, launches,
-                 {name: errs[f"{kernel}@wide"], f"{name}@main": errs[f"{kernel}@{WIDE_ARCH}"]},
+                 {name: errs[f"{kernel}@wide"], f"{name}@main": errs[f"{kernel}@{arch}"]},
                  ms, plain_ms, lib.get("library_ms"), nbytes, flops, "bfloat16")
         r.update({"shape": shape, **{k: v for k, v in lib.items() if k != "library_ms"}})
         rows.append(r)
@@ -3340,30 +3396,77 @@ def phase_wide_timings(errs, launches):
         except RuntimeError as e:   # a yardstick only: the port never calls SDPA
             return {"library_ms": None, "library_note": str(e).splitlines()[0][:200]}
 
-    # flash forward at the prefill shape
-    sets = [_flash_inputs(BATCH, PROMPT, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
-    kern = lambda q, k, v: flash_attention(q, k, v, causal=True)   # noqa: E731
-    ms = _time_ms(kern, sets, 10)
-    device_ms = _graph_ms(kern, sets, 5)
-    plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True),
-                        sets[:2], 3)
-    lib_sets = []
-    for q, k, v in sets:
-        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_sets.append((q, *widen(k, v)))
-    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)  # noqa: E731
-    lib = yardstick(sdpa, lib_sets, 10,
-                    lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 5)})
-    pairs = PROMPT * (PROMPT + 1) // 2
-    flops = 2 * BATCH * h * pairs * (d + d)
-    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:78",
-        f"B={BATCH}, S={PROMPT}, H={h}, KH={kh}, D={d}, causal, bf16", ms, plain_ms, lib,
-        (2 * BATCH * PROMPT * h * d + 2 * BATCH * PROMPT * kh * d) * elem, flops)
-    rows[-1].update({"device_ms": device_ms, "tflops": flops / (device_ms * 1e-3) / 1e12})
-    del sets, lib_sets
+    def sdpa_bwd_sets(sets, group):
+        """SDPA's backward alone, like for like: its forward run once, the
+        graph kept for every timed backward; and its inputs for the forward
+        and backward together."""
+        lib_sets, bwd_sets = [], []
+        for q, k, v, o, lse, do in sets:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_sets.append((qt, kt, vt, dot))
+            with torch.enable_grad():
+                ot = F.scaled_dot_product_attention(qt, *widen(kt, vt, group), is_causal=True,
+                                                    **kw)
+            bwd_sets.append((ot, (qt, kt, vt), dot))
+        return lib_sets, bwd_sets
 
-    # flash backward at one worker's training shape
+    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
+                                                           retain_graph=True)
+
+    for arch in WIDE_SERVE_ARCHS:
+        a = _attn(arch)
+        h, kh, d = a["h"], a["kh"], a["d"]
+        # flash forward at the prefill shape
+        sets = [_flash_inputs(BATCH, PROMPT, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+        kern = lambda q, k, v: flash_attention(q, k, v, causal=True)   # noqa: E731
+        ms = _time_ms(kern, sets, 10)
+        device_ms = _graph_ms(kern, sets, 5)
+        plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True),
+                            sets[:1], 2)
+        lib_sets = []
+        for q, k, v in sets:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_sets.append((q, *widen(k, v, h // kh)))
+        sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, **kw)
+        lib = yardstick(sdpa, lib_sets, 10,
+                        lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 5)})
+        pairs = PROMPT * (PROMPT + 1) // 2
+        flops = 2 * BATCH * h * pairs * (d + d)
+        row("flash_attention", arch, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:78",
+            f"B={BATCH}, S={PROMPT}, H={h}, KH={kh}, D={d}, causal, bf16", ms, plain_ms, lib,
+            (2 * BATCH * PROMPT * h * d + 2 * BATCH * PROMPT * kh * d) * elem, flops)
+        rows[-1].update({"device_ms": device_ms, "tflops": flops / (device_ms * 1e-3) / 1e12})
+        del sets, lib_sets
+
+        # flash-decode over the full serving cache
+        w = PROMPT + GEN
+        nv = torch.full((BATCH,), w, dtype=torch.int32, device=DEVICE)
+        sets = [_decode_inputs(BATCH, w, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
+        kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
+        ms = _time_ms(kern, sets, 20)
+        device_ms = _graph_ms(kern, sets, 20)
+        plain_ms = _time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, nv), sets, 5)
+        lib_sets = [(q[:, :, None, :], *widen(k.transpose(1, 2).contiguous(),
+                                              v.transpose(1, 2).contiguous(), h // kh))
+                    for q, k, v in sets]
+        sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+        lib = yardstick(sdpa, lib_sets, 20,
+                        lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 20)})
+        row("decode_attention", arch, "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:55",
+            f"B={BATCH}, S={w}, H={h}, KH={kh}, D={d}, n_valid {w}, bf16", ms, plain_ms, lib,
+            (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
+            2 * BATCH * h * w * (d + d))
+        rows[-1].update({"device_ms": device_ms, "device_kernels_ms": _kernel_ms(kern, sets, 10),
+                         "plan": _decode_wide_plan(w, BATCH, kh, -(-d // 64) * 64)._asdict()})
+        del sets, lib_sets
+
+    # flash backward at one worker's training shape of WIDE_ARCH
+    a = _attn(WIDE_ARCH)
+    h, kh, d = a["h"], a["kh"], a["d"]
     bw, s = TRAIN_BATCH // TRAIN_WORKERS, TRAIN_SEQ
     sets = []
     for _ in range(4):
@@ -3374,26 +3477,13 @@ def phase_wide_timings(errs, launches):
     device_ms = _graph_ms(flash_attention_bwd, sets, 5)
     queued_ms = _queued_ms(flash_attention_bwd, sets, 10)
     plain_ms = _time_ms(ref.flash_attention_bwd_ref, sets[:2], 3)
-    lib_sets = []
-    for q, k, v, o, lse, do in sets:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        lib_sets.append((qt, kt, vt, do.transpose(1, 2).contiguous()))
 
-    def sdpa_fwd_bwd(qt, kt, vt, dot):
+    def sdpa_fwd_bwd(qt, kt, vt, dot, group=h // kh):
         with torch.enable_grad():
-            ot = F.scaled_dot_product_attention(qt, *widen(kt, vt), is_causal=True, **kw)
+            ot = F.scaled_dot_product_attention(qt, *widen(kt, vt, group), is_causal=True, **kw)
         return torch.autograd.grad(ot, (qt, kt, vt), dot)
 
-    # the yardstick, like for like: SDPA's backward alone (its forward run
-    # once, the graph kept for every timed backward); beside it the forward
-    # and backward together
-    bwd_sets = []
-    for qt, kt, vt, dot in lib_sets:
-        with torch.enable_grad():
-            ot = F.scaled_dot_product_attention(qt, *widen(kt, vt), is_causal=True, **kw)
-        bwd_sets.append((ot, (qt, kt, vt), dot))
-    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
-                                                           retain_graph=True)
+    lib_sets, bwd_sets = sdpa_bwd_sets(sets, h // kh)
     lib = yardstick(sdpa_bwd, bwd_sets, 10,
                     lambda: {"library_device_queued_ms": _queued_ms(sdpa_bwd, bwd_sets, 10),
                              "library_note": "SDPA's backward alone"})
@@ -3403,7 +3493,7 @@ def phase_wide_timings(errs, launches):
     del bwd_sets
     pairs = s * (s + 1) // 2
     flops = 5 * 2 * bw * h * pairs * d
-    row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    row("flash_attention_bwd", WIDE_ARCH, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "none (the reference differentiates jnp chunked_attention, "
         "src/repro/models/layers.py:76)", f"B={bw}, S={s}, H={h}, KH={kh}, D={d}, causal, bf16",
         ms, plain_ms, lib, (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4,
@@ -3413,34 +3503,37 @@ def phase_wide_timings(errs, launches):
                      "device_kernels_ms": _kernel_ms(flash_attention_bwd, sets, 5)})
     del sets, lib_sets
 
-    # flash-decode over the full serving cache
-    w = PROMPT + GEN
-    nv = torch.full((BATCH,), w, dtype=torch.int32, device=DEVICE)
-    sets = [_decode_inputs(BATCH, w, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
-    kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
-    ms = _time_ms(kern, sets, 20)
-    device_ms = _graph_ms(kern, sets, 20)
-    plain_ms = _time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, nv), sets, 5)
-    lib_sets = [(q[:, :, None, :], *widen(k.transpose(1, 2).contiguous(),
-                                          v.transpose(1, 2).contiguous()))
-                for q, k, v in sets]
-    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
-    lib = yardstick(sdpa, lib_sets, 20,
-                    lambda: {"library_device_ms": _graph_ms(sdpa, lib_sets, 20)})
-    row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:55",
-        f"B={BATCH}, S={w}, H={h}, KH={kh}, D={d}, n_valid {w}, bf16", ms, plain_ms, lib,
-        (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
-        2 * BATCH * h * w * (d + d))
-    rows[-1].update({"device_ms": device_ms, "device_kernels_ms": _kernel_ms(kern, sets, 10)})
-    del sets, lib_sets
+    # the 192 backward at nemotron-4-340b's kernel-case shape: bound and SDPA
+    a = _attn("nemotron-4-340b")
+    h, kh, d = a["h"], a["kh"], a["d"]
+    sets = []
+    for _ in range(2):
+        q, k, v = _flash_inputs(bw, s, h, kh, d, d, bf16, "bshd", gen)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        sets.append((q, k, v, o, lse, _rand(o.shape, bf16, gen)))
+    flops = 5 * 2 * bw * h * pairs * d
+    nbytes = (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    nemotron = {"name": "flash_attention_bwd@nemotron-4-340b",
+                "shape": f"B={bw}, S={s}, H={h}, KH={kh}, D={d}, causal, bf16",
+                "device_ms": _graph_ms(flash_attention_bwd, sets, 3),
+                "device_queued_ms": _queued_ms(flash_attention_bwd, sets, 3),
+                "plain_ms": _time_ms(ref.flash_attention_bwd_ref, sets[:1], 2),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    _, bwd_sets = sdpa_bwd_sets(sets, h // kh)
+    nemotron.update(yardstick(
+        sdpa_bwd, bwd_sets, 3,
+        lambda: {"library_device_queued_ms": _queued_ms(sdpa_bwd, bwd_sets, 3),
+                 "library_note": "SDPA's backward alone"}))
+    del sets, bwd_sets
     torch.cuda.empty_cache()
-    print("wide kernel timings " + json.dumps(rows))
+    print("wide kernel timings " + json.dumps(rows + [nemotron]))
     return rows
 
 
-TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_split_kernel",
-                                       "decode_combine_kernel"),
+TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_wide_kernel",
+                                       "decode_f32_kernel", "decode_combine_kernel"),
                   "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
                   "flash_attention_bwd": ("flash_bwd_wgmma_kernel", "flash_bwd_wide_kernel",
                                           "bwd_f32_kernel", "bwd_dot_kernel", "cast_dq_kernel",
@@ -3512,14 +3605,25 @@ def _row(name, source, replaces, launches, errs, ms, plain_ms, lib_ms, nbytes, f
             "library_ms": lib_ms, "main_shape_err": errs[f"{name}@main"]}
 
 
-def _timed_phase(name, fn, seconds: list):
-    """``fn`` that appends (its name, its seconds) to ``seconds``."""
+def _timed_phase(name, fn, seconds: list, held: list):
+    """``fn`` that appends (its name, its seconds) to ``seconds`` and (its
+    name, the device GB still allocated as it ends and after a
+    ``gc.collect()``) to ``held``. The collection frees device tensors that
+    only reference cycles still hold, which would otherwise count toward the
+    peak memory of a later phase whenever Python's collector happens not to
+    have run."""
+    import torch
+
     def run(*args, **kwargs):
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
         finally:
             seconds.append((name, round(time.perf_counter() - t0, 1)))
+            ended = torch.cuda.memory_allocated()
+            gc.collect()
+            held.append((name, round(ended / 1e9, 3),
+                         round(torch.cuda.memory_allocated() / 1e9, 3)))
     return run
 
 
@@ -3537,9 +3641,10 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     seconds = []          # every phase's host seconds, printed before the card's line
+    held = []             # the device memory each phase leaves allocated
     for name, fn in list(globals().items()):
         if name.startswith("phase_"):
-            globals()[name] = _timed_phase(name, fn, seconds)
+            globals()[name] = _timed_phase(name, fn, seconds, held)
     smi = phase_device()
     phase_build()
     errs = phase_kernels()
@@ -3579,10 +3684,11 @@ def main() -> int:
     wide = {arch: phase_wide_serve(arch) for arch in WIDE_SERVE_ARCHS}
     wide["train"] = phase_wide_train()
     wide["ring_vs_single"] = phase_wide_ring_vs_single()
-    wide_launches = {}                       # the d_head-256 instances: gemma-2b's runs
-    for run in (wide[WIDE_ARCH], wide["train"]):
+    wide_launches = {}                       # the wide instances: each arch's runs
+    for arch, run in [(arch, wide[arch]) for arch in WIDE_SERVE_ARCHS] + [(WIDE_ARCH,
+                                                                            wide["train"])]:
         for name, n in run["launches"].items():
-            wide_launches[f"{name}@{WIDE_ARCH}"] = wide_launches.get(f"{name}@{WIDE_ARCH}", 0) + n
+            wide_launches[f"{name}@{arch}"] = wide_launches.get(f"{name}@{arch}", 0) + n
     for name, n in train_launches.items():   # launches over every main-path run
         launches[name] = launches.get(name, 0) + n
     for q in [*quant.values(), *lora.values(), *chained.values(), chaos,
@@ -3623,6 +3729,8 @@ def main() -> int:
          "dense_sync_one_round": {"traced_step": traced}}))
     print("wide timings " + json.dumps(wide))
     print("phase seconds " + json.dumps(seconds))
+    print("device GB held after each phase (as it ended, after gc.collect) "
+          + json.dumps(held))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,7 @@ device time over split sizes.
 Run from the repository root on a machine with the CUDA toolkit and a card:
 
     python3 scripts/kernel_report.py [NAME ...] [--dump DIR] [--sweep] [--train] [--scans]
-        [--attention]
+        [--attention] [--serve]
 
 For each library NAME of ``repro_torch.kernels._build.KERNELS`` (default:
 ``decode_attention flash_attention``) it builds the library afresh, prints
@@ -16,11 +16,10 @@ the counts of the SASS opcodes that say how it moves data and multiplies:
 ``wgmma``), ``FFMA`` (fp32 multiply-adds), ``SHFL``, ``MUFU`` (exponentials),
 ``BAR``/``SYNCS`` (barriers), ``STS``/``STG`` (shared and global stores).
 ``--dump DIR`` writes each library's whole ``cuobjdump -sass`` listing to
-``DIR/NAME.sass``. ``--sweep`` times flash-decode (summed kernel durations in
-a ``torch.profiler`` trace) at the decode shapes of qwen3-1.7b (B=4, 1056
-slots, H=16, KH=8, D=128), hymba-1.5b (B=4, ring of 1024, H=25, KH=5, D=64)
-and gemma-2b (B=4, 1056 slots, H=8, KH=1, D=256) over split sizes of 32-256
-slots and over n_valid. ``--train`` times
+``DIR/NAME.sass``. ``--sweep`` times flash-decode's split pass (summed kernel
+durations in a ``torch.profiler`` trace) at the decode shapes of qwen3-1.7b
+(B=4, 1056 slots, H=16, KH=8, D=128) and hymba-1.5b (B=4, ring of 1024,
+H=25, KH=5, D=64) over split sizes of 32-256 slots and over n_valid. ``--train`` times
 the two training kernels and their library yardsticks at one ring worker's
 training shapes of qwen3-1.7b by device time (a replayed CUDA graph, calls
 queued behind a sleep kernel and the summed kernel durations of a
@@ -37,12 +36,24 @@ each count of items that divides the group.
 ``--attention`` times the three attention kernels at their Dh <= 128
 main-path shapes (qwen3-1.7b's prefill B=4, S=1024, H=16, KH=8, D=128; its
 training backward at B=2; its decode over 1056 slots; hymba-1.5b's prefill
-with its window and its decode over the ring) and the wide backward at
-gemma-2b's training shape (B=2, S=1024, H=8, KH=1, D=256) and
+with its window and its decode over the ring), the wide forward and
+flash-decode at gemma-2b's (H=8, KH=1, D=256) and stablelm-12b's (H=32, KH=8,
+D=160) prefill (B=4, S=1024) and serving cache (1056 slots), the wide forward
+at gemma-2b's heads over one 4096-token sequence, and the wide
+backward at gemma-2b's training shape (B=2, S=1024, H=8, KH=1, D=256) and
 nemotron-4-340b's (B=2, S=1024, H=96, KH=8, D=192), bf16, the same ways: run it
 from a ``git archive`` of another commit (with this script copied into its
 ``scripts/``) and from this tree in one call to compare two commits' kernels
-on one card. Checks against the plain versions are ``chip_smoke.py``'s.
+on one card; it also prints the wide forward's max abs error against the
+plain version on keys that grow along S (row maxima rising tile after tile:
+``chip_smoke.py``'s ``wide-rising-256-bf16`` and ``wide-rising-160-bf16``
+shapes). ``--sweep`` also times the wide flash-decode's cluster sizes (1-16
+blocks) at both serving caches, each beside its error against the plain
+version. ``--serve`` runs ``chip_smoke.py``'s ``phase_wide_serve`` (full-width
+gemma-2b and stablelm-12b served, batch 4, prompt 1024, 32 tokens) in this
+process and prints the device memory held before it, its peak and its warm
+prefill and decode times. Other checks against the plain versions are
+``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
@@ -78,16 +89,15 @@ def report(names, dump):
 
 
 def sweep_chunks():
-    """Flash-decode's device time at both decode shapes over split sizes and
-    over n_valid (the plan's split size)."""
+    """Flash-decode's device time at the Dh <= 128 decode shapes over split
+    sizes and over n_valid (the plan's split size)."""
     import torch
     from chip_smoke import _kernel_ms
     from repro_torch.kernels import decode_attention as mod
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = mod.decode_plan
     out = {}
-    for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64),
-                                  ("gemma", 4, 1056, 8, 1, 256)):
+    for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64)):
         nv = torch.full((b,), s, dtype=torch.int32, device="cuda")
         sets = [tuple(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                       for shape in ((b, h, d), (b, s, kh, d), (b, s, kh, d))) for _ in range(8)]
@@ -219,13 +229,72 @@ def sweep_bwd_splits():
     print("flash backward split sweep " + json.dumps(out))
 
 
-def attention_times():
-    """Device ms per call of the flash forward, the flash backward and
-    flash-decode at the Dh <= 128 shapes of the main path, and of the wide
-    backward instances (``WIDE_BWD_SHAPES``) (``chip_smoke.py``'s inputs,
-    cold sets)."""
+# the wide forward and flash-decode: gemma-2b's (d_head 256, MQA) and
+# stablelm-12b's (d_head 160, padded to 192) prefill and serving cache; and
+# gemma-2b's heads over one 4096-token sequence (four times the operations of
+# B=4, S=1024 over as many query tiles, each four times as long: what a call
+# costs beyond its tiles' work shows as the difference)
+WIDE_FWD_SHAPES = (("gemma", 4, 1024, 8, 1, 256), ("stablelm", 4, 1024, 32, 8, 160))
+WIDE_LONG_SHAPE = ("gemma_s4096", 1, 4096, 8, 1, 256)
+WIDE_CACHE = 1056
+# keys 1x to 4x as long along S, causal (chip_smoke.py's "rising" cases)
+WIDE_RISING_SHAPES = (("gemma_rising", 2, 1024, 8, 1, 256),
+                      ("stablelm_rising", 1, 1024, 32, 8, 160))
+
+
+def _wide_decode_sets(b, s, h, kh, d, gen, n=8):
     import torch
     import chip_smoke as cs
+    return [cs._decode_inputs(b, s, h, kh, d, d, torch.bfloat16, "dense", gen) for _ in range(n)]
+
+
+def sweep_wide():
+    """The wide flash-decode's device time (a replayed CUDA graph) and error
+    against the plain version over cluster sizes at the serving caches of
+    ``WIDE_FWD_SHAPES``."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as mod
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    plan = dmod.decode_wide_plan
+    for label, b, _, h, kh, d in WIDE_FWD_SHAPES:
+        dp = mod.padded_head_dim(d, d)
+        nv = torch.full((b,), WIDE_CACHE, dtype=torch.int32, device="cuda")
+        sets = _wide_decode_sets(b, WIDE_CACHE, h, kh, d, gen)
+        want = ref.decode_attention_ref(*sets[0], nv).float()
+        kern = lambda q, k, v, n=nv: dmod.decode_attention(q, k, v, n)   # noqa: E731
+        out[f"decode_{label}_plan"] = plan(WIDE_CACHE, b, kh, dp, dmod._sm_count(0))._asdict()
+        for c in (1, 2, 4, 8, 16):
+            chunk = dmod._groups16(-(-WIDE_CACHE // c))
+            rows, stages = dmod.wide_ring(dp)
+            forced = (dmod.WidePlan(c, chunk, chunk, 1) if chunk <= dmod.WIDE_ROUND_MAX else
+                      dmod.WidePlan(c, chunk, rows, min(-(-chunk // rows), stages)))
+            dmod.decode_wide_plan = lambda *a, f=forced: f
+            try:
+                got = kern(*sets[0]).float()
+                out[f"decode_{label}_cluster{c}"] = {
+                    "plan": forced._asdict(), "graph_ms": cs._graph_ms(kern, sets, 20),
+                    "max_abs_err": (got - want).abs().max().item()}
+            except RuntimeError as e:   # a cluster the card cannot place
+                out[f"decode_{label}_cluster{c}"] = f"not measured: {str(e)[:200]}"
+            dmod.decode_wide_plan = plan
+        del sets
+    print("wide sweep " + json.dumps(out))
+
+
+def attention_times():
+    """Device ms per call of the flash forward, the flash backward and
+    flash-decode at the Dh <= 128 shapes of the main path, of the wide
+    forward and flash-decode (``WIDE_FWD_SHAPES``) and of the wide backward
+    instances (``WIDE_BWD_SHAPES``) (``chip_smoke.py``'s inputs, cold
+    sets); then the wide forward's max abs error against the plain version
+    at ``WIDE_RISING_SHAPES``."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -247,12 +316,48 @@ def attention_times():
     for label, b, s, h, kh, d in WIDE_BWD_SHAPES:
         out[f"flash_bwd_{label}"] = _device_times(flash_attention_bwd,
                                                   _bwd_sets(b, s, h, kh, d, gen))
+    for label, b, s, h, kh, d in WIDE_FWD_SHAPES + (WIDE_LONG_SHAPE,):
+        sets = [cs._flash_inputs(b, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+        out[f"flash_{label}"] = _device_times(
+            lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
+        if label == WIDE_LONG_SHAPE[0]:
+            continue
+        nv = torch.full((b,), WIDE_CACHE, dtype=torch.int32, device="cuda")
+        out[f"decode_{label}"] = _device_times(
+            lambda q, k, v, n=nv: decode_attention(q, k, v, n),
+            _wide_decode_sets(b, WIDE_CACHE, h, kh, d, gen))
     for label, b, s, h, kh, d in (("qwen", 4, 1056, 16, 8, 128), ("hymba", 4, 1024, 25, 5, 64)):
         nv = torch.full((b,), s, dtype=torch.int32, device="cuda")
         sets = [cs._decode_inputs(b, s, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
         out[f"decode_{label}"] = _device_times(
             lambda q, k, v, n=nv: decode_attention(q, k, v, n), sets)
     print("attention times " + json.dumps(out))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    errs = {}
+    for label, b, s, h, kh, d in WIDE_RISING_SHAPES:
+        q, k, v = cs._flash_inputs(b, s, h, kh, d, d, bf16, "bshd", gen)
+        ramp = 1 + 3 * torch.arange(s, device="cuda", dtype=torch.float32) / s
+        k = (k.float() * ramp[None, :, None, None]).to(bf16)
+        got = flash_attention(q, k, v, causal=True).float()
+        want = ref.flash_attention_ref(q, k, v, causal=True).float()
+        errs[f"flash_{label}"] = (got - want).abs().max().item()
+    print("wide forward max abs err on rising keys " + json.dumps(errs))
+
+
+def serve_report():
+    """``chip_smoke.phase_wide_serve`` for each wide serving arch, alone in
+    this process: the device memory held before it, its peak and its warm
+    times."""
+    import torch
+    import chip_smoke as cs
+    out = {}
+    for arch in cs.WIDE_SERVE_ARCHS:
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated() / 1e9
+        run = cs.phase_wide_serve(arch)
+        out[arch] = {"held_before_gb": before, "peak_memory_gb": run["peak_memory_gb"],
+                     "warm": run["warm"]}
+    print("serve report " + json.dumps(out))
 
 
 def main() -> int:
@@ -263,22 +368,26 @@ def main() -> int:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--scans", action="store_true")
     ap.add_argument("--attention", action="store_true")
+    ap.add_argument("--serve", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     report(args.names, args.dump)
-    if args.sweep or args.train or args.scans or args.attention:
+    if args.sweep or args.train or args.scans or args.attention or args.serve:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
     if args.sweep:
         sweep_chunks()
         sweep_bwd_splits()
+        sweep_wide()
     if args.train:
         train_yardsticks()
     if args.scans:
         scan_times()
     if args.attention:
         attention_times()
+    if args.serve:
+        serve_report()
     return 0
 
 

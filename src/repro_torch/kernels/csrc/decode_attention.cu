@@ -29,9 +29,7 @@
 //     ldmatrix and V fragments by ldmatrix.trans, and the probabilities pass
 //     from the scores' accumulators to the second product in registers
 //     (rounded to bf16, as the flash forward does); one online-softmax update
-//     per 16 slots. Above 128 dims (padded to 192 or 256) the q fragments are
-//     read from shared memory at each k-step rather than held (64 registers
-//     at 256), which leaves room for the 16 x 256 output (128);
+//     per 16 slots;
 //   * fp32 runs scalar FMAs (decode_f32_kernel): a cache row is spread over
 //     the 32 lanes of a warp, 4 dims a lane (8 above 128 dims); each warp
 //     scores its rows of a tile one at a time against the group's heads (up
@@ -43,6 +41,21 @@
 //     past a positive n_valid[b] writes m = -1e30, l = 0 and adds nothing;
 //     with n_valid[b] <= 0 each split holds m = -1e30, l = its slot count and
 //     the sum of its V rows, and the merge gives the uniform average.
+// bf16 above 128 dims (padded to 192 or 256: gemma-2b's MQA, stablelm-12b's
+// and nemotron-4-340b's GQA) takes one launch of decode_wide_kernel instead.
+// There a call moves little (4.3 MB at gemma-2b's serving cache, 1.3 us at
+// 3.35 TB/s) and the split pass's fixed latencies were the cost: q by 2-byte
+// loads before the first tile's copies, one 64-slot tile a block, a 64 KB
+// merge of the warps' outputs in shared memory, and a second launch reading
+// the partials back. Its answers: the cache by TMA boxes (a few operations a
+// block) issued before q and n_valid are read; a warp per 32 output dims, so
+// the warps share one softmax maximum a round through shared memory and need
+// no merge of their outputs; the splits of one (b, kv head) as one thread
+// block cluster that merges them in the same launch (through L2, between
+// one cluster barrier); the plan (decode_wide_plan) about one block per two
+// SMs, since each block's fixed costs (its first loads, the cluster barrier
+// and the merge) outweigh its slots' work at these sizes
+// (scripts/kernel_report.py --sweep times the cluster sizes).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -298,10 +311,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "r"(hopper::smem_addr(p)));
 }
 
-// kD: Dh and Dv padded to 64, 128, 192 or 256. Shared-memory rows are kD + 8
-// elements apart (16 bytes of padding), so ldmatrix's eight row addresses
-// fall on distinct banks. Above 128 the q fragments come by ldmatrix from a
-// 16 x kD tile of q in shared memory at each k-step. Fragment layouts of m16n8k16 (PTX ISA), with gq = lane / 4
+// kD: Dh and Dv padded to 64 or 128 (above, decode_wide_kernel). Shared-memory
+// rows are kD + 8 elements apart (16 bytes of padding), so ldmatrix's eight
+// row addresses fall on distinct banks. Fragment layouts of m16n8k16 (PTX ISA), with gq = lane / 4
 // and t = lane % 4: C values {0,1,2,3} at (gq, 2t), (gq, 2t+1), (gq+8, 2t),
 // (gq+8, 2t+1); here a row is a head and a column a slot (scores) or a dim
 // (output).
@@ -313,14 +325,13 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   int dh, int dv, int g, int splits, int chunk, int64_t q_sb, int64_t q_sh,
                   int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                   int64_t v_sh, float scale_log2) {
+  static_assert(kD <= 128, "head dims above 128 take decode_wide_kernel");
   constexpr int kLd = kD + 8;
   constexpr int kSteps = kD / 16;     // k-steps of the scores
   constexpr int kDt = kD / 8;         // 8-dim tiles of the output
-  constexpr bool kQShared = kD > 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);       // [kStages][kMmaRows][kLd]
   bf16* vs = ks + kStages * kMmaRows * kLd;
-  bf16* qs = vs + kStages * kMmaRows * kLd;           // [16][kLd] when kQShared
 
   const int khi = blockIdx.x;
   const int bi = blockIdx.y;
@@ -333,29 +344,18 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int s1 = min(s0 + chunk, s);
   const bf16* kbase = kc + bi * k_sb + khi * k_sh;
   const bf16* vbase = vc + bi * v_sb + khi * v_sh;
-  // q as A fragments: rows = heads of the group (zero past g), k = dims; held
-  // in registers, or (kQShared) as a 16 x kD tile read at each k-step
-  uint32_t qa[kQShared ? 1 : kSteps][4];
+  // q as A fragments: rows = heads of the group (zero past g), k = dims
+  uint32_t qa[kSteps][4];
   const bf16 zero = __float2bfloat16(0.f);
-  if constexpr (kQShared) {
-    for (int idx = threadIdx.x; idx < 16 * kD; idx += kThreads) {
-      const int gi = idx / kD;
-      const int c = idx - gi * kD;
-      qs[gi * kLd + c] = gi < g && c < dh
-                             ? q[bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh + c]
-                             : zero;
-    }
-  } else {
 #pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
+  for (int st = 0; st < kSteps; ++st) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int gi = gq + (r & 1) * 8;
-        const int c = st * 16 + 2 * t4 + (r >= 2 ? 8 : 0);
-        const bf16* qrow = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
-        const bool in = gi < g;
-        qa[st][r] = pack2(in && c < dh ? qrow[c] : zero, in && c + 1 < dh ? qrow[c + 1] : zero);
-      }
+    for (int r = 0; r < 4; ++r) {
+      const int gi = gq + (r & 1) * 8;
+      const int c = st * 16 + 2 * t4 + (r >= 2 ? 8 : 0);
+      const bf16* qrow = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh;
+      const bool in = gi < g;
+      qa[st][r] = pack2(in && c < dh ? qrow[c] : zero, in && c + 1 < dh ? qrow[c + 1] : zero);
     }
   }
 
@@ -411,14 +411,8 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       for (int st = 0; st < kSteps; ++st) {
         uint32_t b[4];   // {b0, b1} of slots 0-7, then of slots 8-15
         ldmatrix_x4(b, kt + ((mi >> 1) * 8 + rr) * kLd + st * 16 + (mi & 1) * 8);
-        if constexpr (kQShared) {   // matrices (heads 0-7, 8-15) x (dims 0-7, 8-15)
-          ldmatrix_x4(qa[0], qs + (lane % 16) * kLd + st * 16 + (lane / 16) * 8);
-          mma_bf16(sc[0], qa[0], b[0], b[1]);
-          mma_bf16(sc[1], qa[0], b[2], b[3]);
-        } else {
-          mma_bf16(sc[0], qa[st], b[0], b[1]);
-          mma_bf16(sc[1], qa[st], b[2], b[3]);
-        }
+        mma_bf16(sc[0], qa[st], b[0], b[1]);
+        mma_bf16(sc[1], qa[st], b[2], b[3]);
       }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -497,6 +491,398 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   merge_workers<kWarps, 16, kD>(s_acc, s_m, s_l, part_ml, part_acc, part0, g, dv, splits);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 above 128 head dims: one launch, the splits merged in a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kWideGroups = 8;                     // 16-slot groups a round holds at most
+constexpr int kWidePLd = kWideGroups * 16 + 8;     // bf16 pitch of P's rows (head x slot)
+constexpr int kClusterMax = 16;                    // blocks a cluster, splits of one cache
+constexpr int kWideWarpsMax = 8;
+constexpr int kWideSmemMax = 232448;               // 227 KB
+
+// The wide kernel's dynamic shared memory (from a 1024-byte aligned base),
+// for a ring of ring_rows cache rows: K then V, each [ring_rows / round_rows
+// stages][kD / 64 chunks][round_rows rows x 64] bf16 as TMA writes them
+// (128-byte swizzle); q [16][kLd] bf16; P [16][kWidePLd] bf16; fp32
+// [kWideWarpsMax][16] round maxima and sums and [kClusterMax][16] merge
+// weights; the ring's K and V barriers [2][4].
+template <int kD>
+struct WideSmem {
+  static constexpr int kLd = kD + 8;
+  static size_t __host__ __device__ q_off(int ring_rows) { return 2ull * ring_rows * kD * 2; }
+  static size_t __host__ __device__ p_off(int ring_rows) {
+    return q_off(ring_rows) + 16ull * kLd * 2;
+  }
+  static size_t __host__ __device__ f_off(int ring_rows) {
+    return p_off(ring_rows) + 16ull * kWidePLd * 2;
+  }
+  static size_t __host__ __device__ bar_off(int ring_rows) {
+    return f_off(ring_rows) + (2 * kWideWarpsMax * 16 + kClusterMax * 16) * sizeof(float);
+  }
+  static size_t __host__ __device__ bytes(int ring_rows) {
+    return bar_off(ring_rows) + 8 * sizeof(uint64_t) + 1024;
+  }
+};
+
+// fp32 a block's partial takes in the merge's scratch: (m, l) of 16 heads,
+// then 16 x Dv outputs (rounded up to whole 16-byte units).
+__host__ __device__ inline int wide_part_floats(int dv) {
+  return 32 + 16 * ((dv + 3) / 4 * 4);
+}
+
+// kD: Dh and Dv padded to 192 or 256; kD / 32 warps. The grid is (splits, KH,
+// B), launched as clusters of `splits` blocks: the splits of one (b, kv
+// head) side by side. A block takes `chunk` slots (whole 16-slot groups) in
+// rounds of round_rows slots: all at once where the chunk fits one round
+// (stages 1), else through a ring of `stages` rounds. One thread loads them
+// by TMA (a box of round_rows rows by 64 dims per chunk, zero past S and the
+// head dims, completing on an mbarrier per stage and matrix): in the single
+// round K before n_valid is read (the scores mask the slots past it), V
+// after it; q comes by 16-byte cp.async copies. In a round each warp scores
+// 16 heads (rows of mma.sync m16n8k16, zero past g) against 16-slot groups w
+// and w + warps, the k-steps in two chains of sums, the K fragments read
+// through the swizzle; the round's row maxima meet in shared memory, every
+// warp takes the same new maximum, and the warps write P (bf16) for the
+// slots they scored; then each warp adds P V for its own 32 output dims over
+// all the round's slots (V's rows from n_valid to the round's last 16-slot
+// group zeroed first: P is 0 there, but the cache may hold anything), so no
+// warp's output needs merging with another's. A warp rescales its output
+// only where a row's maximum rose. The merge: every block stores its (m, l)
+// per head and its unnormalised outputs to its part of `scratch` (coalesced,
+// into L2); after one cluster barrier (release and acquire at cluster scope)
+// each block reads, in one round of coalesced loads, every block's (m, l)
+// and every block's values of its 1/splits share of the g x Dv outputs,
+// forms each head's weights by half-warp shuffles, and writes its share.
+// Slots at or past
+// n_valid, and the splits past them, add nothing; with n_valid <= 0 every
+// slot scores -1e30 and the merge gives the uniform average, as the split
+// kernels do.
+template <int kD>
+__global__ void __launch_bounds__(kD)
+decode_wide_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const bf16* __restrict__ q, const int* __restrict__ n_valid,
+                   bf16* __restrict__ o, float* __restrict__ scratch, int s, int h, int dh,
+                   int dv, int g, int chunk,
+                   int round_rows, int stages, int64_t q_sb, int64_t q_sh, float scale_log2) {
+  static_assert(kD == 192 || kD == 256, "the wide instances");
+  using L = WideSmem<kD>;
+  constexpr int kW = kD / 32;           // warps: one per 32 output dims
+  constexpr int kT = 32 * kW;           // threads
+  constexpr int kChunks = kD / 64;
+  constexpr int kLd = L::kLd;
+  constexpr int kSteps = kD / 16;       // k-steps of the scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nsplit = gridDim.x;
+  const int ring_rows = stages * round_rows;
+  bf16* ks = reinterpret_cast<bf16*>(base);
+  bf16* vs = ks + ring_rows * kD;
+  bf16* qs = reinterpret_cast<bf16*>(base + L::q_off(ring_rows));
+  bf16* ps = reinterpret_cast<bf16*>(base + L::p_off(ring_rows));
+  float* xm = reinterpret_cast<float*>(base + L::f_off(ring_rows));
+  float* lw = xm + kWideWarpsMax * 16;
+  float* wts = lw + kWideWarpsMax * 16;   // [kClusterMax][16]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::bar_off(ring_rows));   // [2][4]
+
+  const int split = blockIdx.x;         // the block's rank in its cluster
+  const int khi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;
+  const int t4 = lane % 4;
+  const int mi = lane / 8;
+  const int rr = lane % 8;
+  const int s0 = split * chunk;
+  const uint32_t box_bytes = kChunks * 128 * round_rows;   // one matrix, one round
+  // a stage's tile of one matrix: chunk c of row r, 16-byte unit u (swizzled)
+  auto at = [&](bf16* tile, int r, int c, int u) {
+    return tile + c * round_rows * 64 + r * 64 + ((u ^ (r % 8)) * 8);
+  };
+  auto load = [&](const CUtensorMap* map, int which, int r) {   // thread 0
+    const int st = r % stages;
+    bf16* tile = (which == 0 ? ks : vs) + st * round_rows * kD;
+    hopper::mbar_arrive_expect_tx(&full[4 * which + st], box_bytes);
+    for (int c = 0; c < kChunks; ++c) {
+      hopper::tma_load_4d(tile + c * round_rows * 64, map, &full[4 * which + st], c * 64,
+                          s0 + r * round_rows, khi, bi);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 8; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::mbar_fence_init();
+    hopper::tma_prefetch_map(&tk);
+    hopper::tma_prefetch_map(&tv);
+    if (stages == 1 && s0 < s) load(&tk, 0, 0);   // the single round's K, before n_valid
+  }
+  // q's rows by 16-byte copies, zero past g and dh
+  for (int idx = threadIdx.x; idx < 16 * (kD / 8); idx += kT) {
+    const int gi = idx / (kD / 8);
+    const int c = (idx % (kD / 8)) * 8;
+    const int nb = gi < g ? min(max(dh - c, 0), 8) : 0;
+    const bf16* src = q + bi * q_sb + static_cast<int64_t>(khi * g + gi) * q_sh + c;
+    hopper::cp_async16(qs + gi * kLd + c, nb > 0 ? src : q, nb * 2);
+  }
+  hopper::cp_async_commit();
+  int n = n_valid[bi];
+  const bool none_valid = n <= 0;
+  n = none_valid ? s : min(n, s);
+  const int end = min(min(s0 + chunk, s), n);   // slots [s0, end) count in this block
+  const int rounds = end > s0 ? (end - s0 + round_rows - 1) / round_rows : 0;
+  if (threadIdx.x == 0) {
+    if (stages == 1) {
+      if (rounds > 0) load(&tv, 1, 0);
+    } else {
+      for (int r = 0; r < stages && r < rounds; ++r) {
+        load(&tk, 0, r);
+        load(&tv, 1, r);
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();   // q, and the barriers' initialisation
+
+  uint32_t qa[kSteps][4];   // q as A fragments (heads x dims)
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    ldmatrix_x4(qa[kk], qs + (lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
+  }
+  float acc[4][4];          // O: 16 heads x this warp's 32 dims (four 8-dim tiles)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};   // heads gq and gq + 8, base 2
+  float l[2] = {0.f, 0.f};           // this thread's share of each head's sum
+
+  for (int r = 0; r < rounds; ++r) {
+    const int st = r % stages;
+    const uint32_t parity = (r / stages) & 1;
+    if (r > 0) {
+      __syncthreads();   // every warp is past round r - 1: its stage takes round r - 1 + stages
+      if (threadIdx.x == 0 && r - 1 + stages < rounds) {
+        load(&tk, 0, r - 1 + stages);
+        load(&tv, 1, r - 1 + stages);
+      }
+    }
+    hopper::mbar_wait(&full[st], parity);   // K
+    const int first = s0 + r * round_rows;
+    const int rend = min(first + round_rows, end);
+    const int groups = (rend - first + 15) / 16;
+    bf16* kst = ks + st * round_rows * kD;
+    bf16* vst = vs + st * round_rows * kD;
+
+    // scores of groups warp and warp + kW: [group][8-slot tile][4], each the
+    // sum of two chains (even and odd k-steps)
+    float sc[2][2][4];
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) {
+      const int grp = warp + kW * gi;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[gi][j][e] = 0.f;
+      }
+      if (grp < groups) {   // the same for the whole warp
+        const int row = grp * 16 + (mi >> 1) * 8 + rr;   // this lane's K row of its matrix
+        float odd[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          uint32_t b[4];   // {b0, b1} of slots 0-7, then of slots 8-15
+          ldmatrix_x4(b, at(kst, row, kk / 4, (kk % 4) * 2 + (mi & 1)));
+          if (kk % 2) {
+            mma_bf16(odd[0], qa[kk], b[0], b[1]);
+            mma_bf16(odd[1], qa[kk], b[2], b[3]);
+          } else {
+            mma_bf16(sc[gi][0], qa[kk], b[0], b[1]);
+            mma_bf16(sc[gi][1], qa[kk], b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = first + grp * 16 + 8 * j + 2 * t4 + (e & 1) < rend;
+            const float x = none_valid ? kNegInf : (sc[gi][j][e] + odd[j][e]) * scale_log2;
+            sc[gi][j][e] = x;
+            if (live) mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    }
+    if (t4 == 0) {
+      xm[warp * 16 + gq] = mx[0];
+      xm[warp * 16 + gq + 8] = mx[1];
+    }
+    __syncthreads();
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float rm = m[hr];
+#pragma unroll
+      for (int w = 0; w < kW; ++w) rm = fmaxf(rm, xm[w * 16 + gq + 8 * hr]);
+      corr[hr] = hopper::exp2_approx(m[hr] - rm);
+      m[hr] = rm;
+      l[hr] *= corr[hr];
+    }
+    // P of the scored slots, bf16, into shared memory; the sums in fp32
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) {
+      const int grp = warp + kW * gi;
+      if (grp < groups) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = first + grp * 16 + 8 * j + 2 * t4 + (e & 1) < rend;
+            const float p = live ? hopper::exp2_approx(sc[gi][j][e] - m[e >> 1]) : 0.f;
+            sc[gi][j][e] = p;
+            l[e >> 1] += p;
+          }
+          const int col = grp * 16 + 8 * j + 2 * t4;
+          *reinterpret_cast<uint32_t*>(ps + gq * kWidePLd + col) =
+              pack2(sc[gi][j][0], sc[gi][j][1]);
+          *reinterpret_cast<uint32_t*>(ps + (gq + 8) * kWidePLd + col) =
+              pack2(sc[gi][j][2], sc[gi][j][3]);
+        }
+      }
+    }
+    hopper::mbar_wait(&full[4 + st], parity);   // V
+    // V's rows from `end` to the last 16-slot group: zeros (P is 0 there)
+    const int dead = groups * 16 - (rend - first);
+    for (int i = threadIdx.x; i < dead * kD; i += kT) {
+      const int row = rend - first + i / kD;
+      const int d = i % kD;
+      at(vst, row, d / 64, (d % 64) / 8)[d % 8] = __float2bfloat16(0.f);
+    }
+    hopper::fence_proxy_async();   // before TMA writes the stage again
+    __syncthreads();
+    if (__any_sync(0xffffffffu, (corr[0] != 1.f) | (corr[1] != 1.f))) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j][0] *= corr[0];
+        acc[j][1] *= corr[0];
+        acc[j][2] *= corr[1];
+        acc[j][3] *= corr[1];
+      }
+    }
+    // O += P V over the round's slots and this warp's 32 dims
+    for (int kk = 0; kk < groups; ++kk) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, ps + (lane % 16) * kWidePLd + kk * 16 + (lane / 16) * 8);
+      const int row = kk * 16 + (mi & 1) * 8 + rr;   // this lane's V row of its matrix
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        const int d = warp * 32 + dp * 16 + (mi >> 1) * 8;
+        uint32_t b[4];   // {b0, b1} of dims [16 dp, 16 dp + 8), then of the next 8
+        ldmatrix_x4_trans(b, at(vst, row, d / 64, (d % 64) / 8));
+        mma_bf16(acc[2 * dp], pa, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+  // a single-round block with no slot still waits for the K it was sent
+  if (rounds == 0 && stages == 1 && s0 < s) hopper::mbar_wait(&full[0], 0);
+
+  // the merge: the block's part of the scratch, (m, l) per head, then its
+  // outputs; the cluster's parts lie side by side
+  const int part = wide_part_floats(dv);
+  const int ldo = (dv + 3) / 4 * 4;
+  float* parts = scratch + (static_cast<int64_t>(bi) * gridDim.y + khi) * nsplit * part;
+  float* mine = parts + split * part;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+  if (t4 == 0) {
+    lw[warp * 16 + gq] = l[0];
+    lw[warp * 16 + gq + 8] = l[1];
+    if (warp == 0) {   // the round maxima are read: xm takes the heads' m
+      xm[gq] = m[0];
+      xm[gq + 8] = m[1];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int gi = gq + 8 * hr;
+      const int d = warp * 32 + 8 * j + 2 * t4;
+      if (gi < g && d < ldo) {
+        *reinterpret_cast<float2*>(mine + 32 + gi * ldo + d) =
+            make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 16) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) sum += lw[w * 16 + threadIdx.x];
+    mine[2 * threadIdx.x] = xm[threadIdx.x];
+    mine[2 * threadIdx.x + 1] = sum;
+  }
+  hopper::cluster_sync();   // every block's part is in L2
+
+  // one round of loads: this block's share of the outputs from every part,
+  // and the (m, l) of head t / 16 of part t % 16 (half a warp a head)
+  const int per = (g * dv + nsplit - 1) / nsplit;   // outputs a block merges
+  const int lo = split * per;
+  const int hi = min(lo + per, g * dv);
+  const int idx0 = lo + threadIdx.x;
+  float val[kClusterMax];
+  {
+    const int gi0 = idx0 / dv;
+    const float* src = parts + 32 + gi0 * ldo + (idx0 - gi0 * dv);
+#pragma unroll
+    for (int c = 0; c < kClusterMax; ++c) val[c] = c < nsplit && idx0 < hi ? src[c * part] : 0.f;
+  }
+  for (int t = threadIdx.x; t - lane < 16 * 16; t += kT) {   // whole warps
+    const int gi = t / 16;
+    const int c = t % 16;
+    const bool in = c < nsplit && gi < 16;
+    const float mc = in ? parts[c * part + 2 * gi] : kNegInf;
+    const float lc = in ? parts[c * part + 2 * gi + 1] : 0.f;
+    float mx = mc;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float f = hopper::exp2_approx(mc - mx);
+    float den = lc * f;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) den += __shfl_xor_sync(0xffffffffu, den, off);
+    if (in) wts[c * 16 + gi] = f / fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  // this block's share of the g x Dv outputs
+  for (int idx = idx0; idx < hi; idx += kT) {
+    const int gi = idx / dv;
+    const int d = idx - gi * dv;
+    if (idx != idx0) {
+#pragma unroll
+      for (int c = 0; c < kClusterMax; ++c) {
+        val[c] = c < nsplit ? parts[c * part + 32 + gi * ldo + d] : 0.f;
+      }
+    }
+    float num = 0.f;
+#pragma unroll
+    for (int c = 0; c < kClusterMax; ++c) {
+      if (c < nsplit) num = fmaf(val[c], wts[c * 16 + gi], num);
+    }
+    o[(static_cast<int64_t>(bi) * h + khi * g + gi) * dv + d] = __float2bfloat16(num);
+  }
+}
+
 // o[b, h] = sum over splits of acc 2^(m - M) / sum of l 2^(m - M), one block
 // of kCT threads (128, or 256 above 128 dims) per (b, h), one thread per
 // output dim. Launched to overlap the split pass's tail (programmatic
@@ -556,7 +942,7 @@ struct Args {
   void* o;
   float* part_ml;
   float* part_acc;
-  int b, s, h, kh, dh, dv, splits, chunk;
+  int b, s, h, kh, dh, dv, splits, chunk, rows, stages;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
 };
@@ -607,8 +993,7 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 
 template <int kD>
 int launch_bf16(const Args& a, cudaStream_t stream) {
-  constexpr size_t kTiles = (2ull * kStages * kMmaRows + (kD > 128 ? 16 : 0)) * (kD + 8) *
-                            sizeof(bf16);
+  constexpr size_t kTiles = 2ull * kStages * kMmaRows * (kD + 8) * sizeof(bf16);
   constexpr size_t kMerge = (static_cast<size_t>(kWarps) * 16 * kD + 2 * kWarps * 16) * 4;
   constexpr size_t kSmem = kTiles > kMerge ? kTiles : kMerge;
   auto kernel = decode_mma_kernel<kD>;
@@ -621,23 +1006,70 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
       a.h / a.kh, a.splits, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss,
       a.v_sh, a.scale * kLog2e);
   const cudaError_t err = cudaGetLastError();
-  return err != cudaSuccess ? static_cast<int>(err)
-                            : combine<(kD > 128 ? 256 : kThreads)>(a, kBFloat16, stream);
+  return err != cudaSuccess ? static_cast<int>(err) : combine<kThreads>(a, kBFloat16, stream);
+}
+
+// The wide kernel as clusters of a.splits blocks (a.chunk slots each, rounds
+// of a.rows through a.stages stages); above 8 blocks a cluster is a
+// non-portable size, which the launch refuses where the card cannot place it.
+template <int kD>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  const bool ring_ok = a.stages >= 2 || a.chunk <= a.rows;
+  if (a.splits > kClusterMax || a.rows < 16 || a.rows % 16 != 0 || a.rows > kWideGroups * 16 ||
+      a.stages < 1 || a.stages > 4 || !ring_ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = WideSmem<kD>::bytes(a.stages * a.rows);
+  if (smem > static_cast<size_t>(kWideSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tk, tv;
+  if (!hopper::encode_bshd(&tk, a.k, a.b, a.s, a.kh, a.dh, a.k_sb, a.k_ss, a.k_sh, a.rows) ||
+      !hopper::encode_bshd(&tv, a.v, a.b, a.s, a.kh, a.dv, a.v_sb, a.v_ss, a.v_sh, a.rows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = decode_wide_kernel<kD>;
+  static const cudaError_t opt_in = [&] {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kWideSmemMax);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.kh, a.b);
+  cfg.blockDim = dim3(kD);   // a warp per 32 output dims
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, tk, tv, static_cast<const bf16*>(a.q), a.n_valid, static_cast<bf16*>(a.o),
+      a.part_ml, a.s, a.h, a.dh, a.dv, a.h / a.kh, a.chunk, a.rows, a.stages, static_cast<int64_t>(a.q_sb),
+      static_cast<int64_t>(a.q_sh), a.scale * kLog2e));
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// Launches the split pass and the merge on `stream`; returns
-// cudaGetLastError() after them (0 on success). Strides are in elements; the
-// last dimension of q and the caches is dense; the caches' base addresses and
-// strides are multiples of 16 bytes; n_valid is a device array of B
-// int32; o is a dense (B,H,Dv) tensor; scratch is fp32 of B*H*splits*(Dv+2)
-// elements; splits * chunk >= S. The caller guarantees 1 <= Dh, Dv <= 256,
-// H % KH == 0 and H / KH <= 16.
+// Launches the split pass and the merge on `stream`, or above 128 padded head
+// dims in bf16 the one wide kernel; returns cudaGetLastError() after them (0
+// on success). Strides are in elements; the last dimension of q and the
+// caches is dense; the caches' base addresses and strides are multiples of 16
+// bytes (q's too on the wide path); n_valid is a device array of B int32; o
+// is a dense (B,H,Dv) tensor; splits * chunk >= S. The split pass takes
+// scratch, fp32 of B*H*splits*(Dv+2) elements, and ignores rows and stages;
+// the wide kernel takes clusters of `splits` (<= 16) blocks, rounds of `rows`
+// slots through `stages` stages, and scratch of fp32 B*KH*splits*(32 + 16 *
+// (Dv rounded up to 4)) elements. The caller guarantees
+// 1 <= Dh, Dv <= 256, H % KH == 0 and H / KH <= 16.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                     const void* n_valid, void* o, void* scratch, int b, int s,
                                     int h, int kh, int dh, int dv, int splits, int chunk,
+                                    int rows, int stages,
                                     long long q_sb, long long q_sh, long long k_sb,
                                     long long k_ss, long long k_sh, long long v_sb,
                                     long long v_ss, long long v_sh, float scale, void* stream) {
@@ -649,13 +1081,13 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, con
   }
   float* part_ml = static_cast<float*>(scratch);
   Args a{q, k, v, static_cast<const int*>(n_valid), o, part_ml,
-         part_ml + 2ll * b * h * splits, b, s, h, kh, dh, dv, splits, chunk, q_sb, q_sh,
-         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
+         part_ml + 2ll * b * h * splits, b, s, h, kh, dh, dv, splits, chunk, rows, stages,
+         q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
   const int dmax = dh > dv ? dh : dv;
   if (dtype == kFloat32) return dmax > 128 ? launch_f32<256>(a, st) : launch_f32<128>(a, st);
   if (dtype == kBFloat16) {
-    return dmax > 192   ? launch_bf16<256>(a, st)
-           : dmax > 128 ? launch_bf16<192>(a, st)
+    return dmax > 192   ? launch_wide<256>(a, st)
+           : dmax > 128 ? launch_wide<192>(a, st)
            : dmax > 64  ? launch_bf16<128>(a, st)
                         : launch_bf16<64>(a, st);
   }

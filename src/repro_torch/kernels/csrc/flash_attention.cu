@@ -27,9 +27,20 @@
 // through a ring of mbarrier-guarded stages, and two consumer warpgroups of
 // 64 query rows each run both products as wgmma, the probabilities passed
 // from registers to the second product. Head dims above 128 (padded to 192
-// or 256) take kv tiles of 64 rows, not 128: two stages of K and V then fit
-// beside Q in 227 KB (192 KB at 256), and the scores (32 fp32 values a
-// thread) leave room for the 64 x 256 output accumulator (128).
+// or 256) take the same block with 64-row kv tiles (two stages of K and V
+// then fit beside Q in 227 KB; 192 KB at 256). At gemma-2b's prefill (B=4,
+// S=1024, H=8, KH=1, D=256, causal) the products take ~17 us at an H100's
+// tensor-core rate, but the block took ~50 us there and reached ~58% of that
+// rate over one 4096-token sequence (as many query tiles, four times the
+// work each): per-item costs, not the tiles, held it back, each of a
+// block's ~2 items ending on an output written from registers while no
+// product ran. Above 128 dims it now stores the output by TMA from the last
+// kv stage (the next item's loads and first products overlap the store) and
+// skips the rescale of a warp's rows where none of their maxima rose. Kv
+// tiles of 80 rows (256 dims) or 96 and 112 (192) timed 2-7% slower at the
+// main path's prefills, and the two warpgroups taking turns at the tensor
+// cores, as FlashAttention-3 does up to 128 dims, timed slower too; both are
+// left out.
 // fp32 takes scalar FMAs (one block per 64-row query tile): 4 threads share a
 // query row, each holding a quarter of the row's q and accumulator, reading
 // each kv row as 16-byte packs that a warp's 8 rows share (broadcasts, no
@@ -267,21 +278,35 @@ __device__ __forceinline__ int fa_item(int round) {
 // transposed (MN-major) from shared memory; the scores of one kv tile and P V
 // of the one before are in flight together. K and V stages are freed
 // separately (K once its scores are in, V once its product is), so the
-// producer runs two kv tiles ahead. kD is the head dim padded to 64, 128,
-// 192 or 256, kBN the kv rows of a tile (128, or 64 above 128 dims); TMA
-// zero-fills past Dh, Dv, Sq and Skv, and masks are applied only on kv tiles
-// that a diagonal, a window edge or the ragged end cuts.
+// producer runs two kv tiles ahead. kD is the head dim padded to 64, 128, 192
+// or 256, kBN the kv rows of a tile; TMA zero-fills past Dh, Dv, Sq and Skv,
+// and masks are applied only on kv tiles that a diagonal, a window edge or
+// the ragged end cuts. Up to 128 dims kBN is 128 and the output is stored
+// from registers. Above (kWide), kBN is 64, and:
+//   * a warp rescales its rows only where one of its rows' maxima rose (a
+//     vote a tile): elsewhere every factor would be exactly 1;
+//   * where `tma_out` (the host's choice: Dv a multiple of 8), the output
+//     tiles go out by TMA stores (one box per 64-dim chunk) from the K (first
+//     warpgroup) and V (second) tiles of the item's last kv stage, which both
+//     warpgroups are done with once their last P V is in: the next item's Q
+//     and first kv tile load meanwhile, and only its second kv tile, bound
+//     for that stage, waits until the stores have read it; else from
+//     registers.
 template <int kD, int kBN>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, bf16* __restrict__ o,
                        float* __restrict__ lse, int b, int sq, int skv, int h, int kh, int dv,
-                       int causal, int window, float scale_log2, int nqt) {
+                       int causal, int window, float scale_log2, int nqt, int tma_store) {
+  constexpr bool kWide = kD > 128;
+  static_assert(kBN == (kWide ? 64 : 128), "the kv tile widths");
   constexpr int kChunks = kD / 64;
   constexpr int kSteps = kD / 16;                      // k-steps of S = Q K^T
   constexpr uint32_t kQBytes = 2 * kChunks * 64 * 128;
   constexpr uint32_t kKvBytes = kChunks * kBN * 128;
+  const bool tma_out = kWide && tma_store;
   extern __shared__ unsigned char smem_raw[];
   FaShared<kD, kBN>& sm = *reinterpret_cast<FaShared<kD, kBN>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -348,12 +373,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
     const int quad = lane % 4;
+    const int row_in = (t / 32) * 16 + lane / 4;        // this thread's first row of the 64
     float acc[kD / 2];                                  // O: 64 x kD over the warpgroup
     float s[kBN / 2];                                   // S: 64 x kBN over the warpgroup
     uint32_t pa[kBN / 16][4];                           // P of the previous tile, bf16
     float m[2];
     float l[2];    // this thread's share of each row's sum
     float corr[2];
+    bool rescale = true;   // corr is not 1: the output takes it before the next P V
     int r0 = 0;    // first query row of this warpgroup in the current tile
     int rows[2] = {0, 0};
     int tile = 0;  // kv tiles consumed before the current query tile
@@ -382,7 +409,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_wait(&sm.v_full[st], ((tile + it) / kFaStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        // 16 kv rows of V (2048 bytes) per k-step; the d chunks lie kBN x 128 B apart
+        // 16 kv rows of V per k-step; the d chunks lie kBN x 128 B apart
         hopper::wgmma_rs_over_d<kD>(acc, pa[kk], [&](int c) {
           return hopper::sw128_desc(&sm.v[st][c][kk * 16 * 64], kBN * 128, 1024);
         });
@@ -390,7 +417,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_commit();
     };
     // The online softmax of the scores of kv tile kv0 in s: s becomes P
-    // (fp32), m and l move on, corr is the factor the output has to take.
+    // (fp32), m and l move on where the warp rescales, corr is the factor the
+    // output has to take.
     auto softmax = [&](int kv0) {
       // scores in base 2; masks only where this tile cuts them for our rows
       const bool cut = kv0 + kBN > skv || (causal && kv0 + kBN - 1 > r0) ||
@@ -417,9 +445,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        corr[r] = hopper::exp2_approx(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= corr[r];
+      }
+      if constexpr (kWide) {
+        rescale = __any_sync(0xffffffffu, (mx[0] > m[0]) | (mx[1] > m[1]));
+      }
+      if (!kWide || rescale) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          corr[r] = hopper::exp2_approx(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= corr[r];
+        }
       }
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
@@ -441,8 +477,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (item >= items) continue;
       const FaWork w = fa_work<kBN>(item, nqt, h, b, skv, causal, window);
       r0 = w.q0 + wg * 64;
-      rows[0] = r0 + (t / 32) * 16 + lane / 4;
+      rows[0] = r0 + row_in;
       rows[1] = rows[0] + 8;
+      // the last kv stage's K and V tiles take the output tiles (TMA store):
+      // its empty barriers wait for the stores
+      const bool staged = tma_out && w.ntiles > 0;
+      const int last = (tile + w.ntiles - 1) % kFaStages;
 #pragma unroll
       for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
       m[0] = m[1] = kNegInf;
@@ -459,7 +499,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         issue_scores(0);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
-        hopper::mbar_arrive(&sm.k_empty[tile % kFaStages]);
+        if (!(staged && w.ntiles == 1)) hopper::mbar_arrive(&sm.k_empty[tile % kFaStages]);
         if (w.ntiles == 1) hopper::mbar_arrive(&sm.q_empty);
         softmax(w.first * kBN);
         pack_p();
@@ -472,15 +512,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         issue_pv(it - 1);
         hopper::wgmma_wait<1>();   // the scores of kv tile it
         hopper::fence_regs(s);
-        hopper::mbar_arrive(&sm.k_empty[(tile + it) % kFaStages]);
+        if (!(staged && it == w.ntiles - 1)) {
+          hopper::mbar_arrive(&sm.k_empty[(tile + it) % kFaStages]);
+        }
         if (it == w.ntiles - 1) hopper::mbar_arrive(&sm.q_empty);
         softmax((w.first + it) * kBN);
         hopper::wgmma_wait<0>();   // P V of kv tile it - 1
         hopper::fence_regs(acc);
         hopper::keep_regs(pa);
         hopper::mbar_arrive(&sm.v_empty[(tile + it - 1) % kFaStages]);
+        if (!kWide || rescale) {
 #pragma unroll
-        for (int i = 0; i < kD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+          for (int i = 0; i < kD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        }
         pack_p();
       }
       if (w.ntiles > 0) {
@@ -490,51 +534,97 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
         hopper::keep_regs(pa);
-        hopper::mbar_arrive(&sm.v_empty[(tile + w.ntiles - 1) % kFaStages]);
+        if (!staged) hopper::mbar_arrive(&sm.v_empty[last]);
       }
 
+      float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        if (rows[r] >= sq) continue;
         const float denom = fmaxf(l[r], 1e-30f);
-        if (lse != nullptr && quad == 0) {
+        inv[r] = 1.f / denom;
+        if (lse != nullptr && quad == 0 && rows[r] < sq) {
           lse[(static_cast<int64_t>(w.bi) * h + w.hi) * sq + rows[r]] = m[r] * kLn2 + logf(denom);
         }
-        const float inv = 1.f / denom;
-        bf16* orow = o + ((static_cast<int64_t>(w.bi) * sq + rows[r]) * h + w.hi) * dv;
+      }
+      if (kWide && staged) {
+        // both warpgroups are done with the last stage's K and V tiles: the
+        // first takes K's chunks, the second V's, each chunk's first 64 rows
+        // 128-byte swizzled as the map reads them (the 16-byte unit j % 8 of
+        // row r sits at unit (j % 8) ^ (r % 8)); the other warpgroup's share
+        // of the stage's empty barrier goes now, this one's once the store
+        // has read the tile
+        hopper::named_sync(1, 256);
+        bf16 (*out)[kBN * 64] = wg == 0 ? sm.k[last] : sm.v[last];
+        hopper::mbar_arrive(wg == 0 ? &sm.v_empty[last] : &sm.k_empty[last]);
 #pragma unroll
-        for (int j = 0; j < kD / 8; ++j) {
-          const int d = j * 8 + 2 * quad;
-          const float a0 = acc[4 * j + 2 * r] * inv;
-          const float a1 = acc[4 * j + 2 * r + 1] * inv;
-          if (d + 1 < dv && dv % 2 == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(a0, a1);
-          } else {
-            if (d < dv) orow[d] = __float2bfloat16(a0);
-            if (d + 1 < dv) orow[d + 1] = __float2bfloat16(a1);
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_in + 8 * r;
+#pragma unroll
+          for (int j = 0; j < kD / 8; ++j) {
+            unsigned char* base = reinterpret_cast<unsigned char*>(out[j / 8]);
+            *reinterpret_cast<uint32_t*>(base + row * 128 + (((j % 8) ^ (row % 8)) * 16) +
+                                         quad * 4) =
+                pack2(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::named_sync(2 + wg, 128);
+        if (t == 0) {
+          for (int c = 0; c < kChunks && c * 64 < dv; ++c) {
+            hopper::tma_store_4d(&to, out[c], c * 64, r0, w.hi, w.bi);
+          }
+          hopper::bulk_commit();
+          hopper::bulk_wait_read<0>();
+          hopper::mbar_arrive_n(wg == 0 ? &sm.k_empty[last] : &sm.v_empty[last], 128);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (rows[r] >= sq) continue;
+          bf16* orow = o + ((static_cast<int64_t>(w.bi) * sq + rows[r]) * h + w.hi) * dv;
+#pragma unroll
+          for (int j = 0; j < kD / 8; ++j) {
+            const int d = j * 8 + 2 * quad;
+            const float a0 = acc[4 * j + 2 * r] * inv[r];
+            const float a1 = acc[4 * j + 2 * r + 1] * inv[r];
+            if (d + 1 < dv && dv % 2 == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(a0, a1);
+            } else {
+              if (d < dv) orow[d] = __float2bfloat16(a0);
+              if (d + 1 < dv) orow[d + 1] = __float2bfloat16(a1);
+            }
           }
         }
       }
       tile += w.ntiles;
       ++n;
     }
+    if (tma_out && t == 0) hopper::bulk_wait<0>();
   }
 }
 
+// Above 128 dims the output map: the dense (B, Sq, H, Dv) output in 64 x 64
+// boxes, where TMA can describe it (Dv a multiple of 8); else the kernel
+// stores from registers.
 template <int kD, int kBN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                  int sq, int skv, int h, int kh, int dh, int dv, long long q_sb, long long q_ss,
                  long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh, int causal, int window,
                  float scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   if (!hopper::encode_bshd(&tq, q, b, sq, h, dh, q_sb, q_ss, q_sh, 64) ||
       !hopper::encode_bshd(&tk, k, b, skv, kh, dh, k_sb, k_ss, k_sh, kBN) ||
       !hopper::encode_bshd(&tv, v, b, skv, kh, dv, v_sb, v_ss, v_sh, kBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int tma_store = kD > 128 && dv % 8 == 0 &&
+                        hopper::encode_bshd(&to, o, b, sq, h, dv,
+                                            static_cast<long long>(sq) * h * dv,
+                                            static_cast<long long>(h) * dv, dv, 64);
+  if (!tma_store) to = tv;   // never read: the kernel stores from registers
   constexpr int kSmem = static_cast<int>(sizeof(FaShared<kD, kBN>)) + 1024;
   auto kernel = flash_fwd_wgmma_kernel<kD, kBN>;
   static const cudaError_t opt_in =
@@ -549,9 +639,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   }
   const int nqt = (sq + kFaBlockM - 1) / kFaBlockM;
   const int blocks = min(nqt * h * b, sms);   // one block per SM, walking the tiles
-  kernel<<<blocks, kFaThreads, kSmem, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, b, sq,
-                                                skv, h, kh, dv, causal, window,
-                                                scale * kLog2e, nqt);
+  kernel<<<blocks, kFaThreads, kSmem, stream>>>(tq, tk, tv, to, static_cast<bf16*>(o), lse, b,
+                                                sq, skv, h, kh, dv, causal, window,
+                                                scale * kLog2e, nqt, tma_store);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, cp.async,
-// TMA and bulk copies into shared memory, bulk reduce-adds out of it, named
-// barriers, wgmma descriptors and the warpgroup products the flash forward and
-// backward and the fused cross-entropy use, and register reallocation between
+// TMA and bulk copies into shared memory, TMA stores and bulk reduce-adds out
+// of it, named barriers, cluster barriers, wgmma descriptors and the
+// warpgroup products the flash forward and backward and the fused
+// cross-entropy use, and register reallocation between
 // warpgroups. The tensor maps are encoded on the host through the driver's
 // entry point, found at run time, so no library needs to link libcuda.
 #pragma once
@@ -53,6 +54,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
 // One arrival that also announces `bytes` of asynchronous copies to come.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
@@ -85,6 +93,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A 4-D box of shared memory out to a tensor map (the parts past the tensor's
+// edges are not written); tracked by bulk groups (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
 }
@@ -149,6 +168,15 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // handshake whose consumers call named_sync with the same `count`.
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Thread block clusters: every thread of every block of the cluster arrives,
+// then waits; memory writes before it (release, cluster scope) are visible
+// to the cluster's reads after it (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {

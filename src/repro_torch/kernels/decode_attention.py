@@ -11,16 +11,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .flash_attention import _sm_count, pad_head_dim, tma_describable
+from .flash_attention import _sm_count, pad_head_dim, padded_head_dim, tma_describable
 
 D_MAX = 256
 G_MAX = 16
 SPLIT_TILE = 64        # slots per tile of the bf16 kernel: splits are whole tiles
 BLOCKS_PER_SM = 2      # blocks of the split pass the plan aims for on each SM
+# The wide kernel (bf16, padded head dims 192 and 256): one launch whose
+# clusters merge their splits.
+WIDE_CLUSTER_MAX = 16  # blocks a cluster; above 8 a size the card must be asked for
+WIDE_ROUND_MAX = 128   # slots a block scores in one round (8 groups of 16)
+WIDE_PAIR_SLOTS = 80   # the longest split whose blocks fit two to an SM
+WIDE_BLOCKS_PER_SM = 0.5   # blocks of the grid the plan aims for on each SM
 
 
 def decode_plan(s: int, b: int, kh: int, sms: int) -> tuple[int, int]:
@@ -29,11 +36,59 @@ def decode_plan(s: int, b: int, kh: int, sms: int) -> tuple[int, int]:
     64-slot tiles each, so that the (KH, B, splits) grid puts about
     ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs. Depends on shapes only,
     never on ``n_valid``, which lives on the card: reading it here would
-    synchronise every decode step."""
+    synchronise every decode step. The head dims above 128 in bf16 take
+    ``decode_wide_plan``."""
     want = -(-BLOCKS_PER_SM * sms // max(b * kh, 1))
     per = -(-s // want)
     chunk = max(1, (per + SPLIT_TILE // 2) // SPLIT_TILE) * SPLIT_TILE
     return -(-s // chunk), chunk
+
+
+class WidePlan(NamedTuple):
+    """How the wide kernel cuts a cache: clusters of ``cluster`` blocks per
+    (batch row, kv head), each block ``chunk`` slots (whole 16-slot groups;
+    the last blocks may hold fewer, or none), scored in rounds of ``rows``
+    slots through a ring of ``stages`` rounds (one stage where the chunk is
+    one round)."""
+    cluster: int
+    chunk: int
+    rows: int
+    stages: int
+
+
+def _groups16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def wide_ring(d: int) -> tuple[int, int]:
+    """(slots a round, stages) of the wide kernel's ring at padded head dim
+    ``d``, for splits longer than one round: two stages of 128 slots at 192
+    dims, three of 64 at 256 (what 227 KB of shared memory holds)."""
+    return (128, 2) if d <= 192 else (64, 3)
+
+
+def decode_wide_plan(s: int, b: int, kh: int, d: int, sms: int) -> WidePlan:
+    """The wide kernel's plan for a cache of ``s`` slots at (B, KH) and padded
+    head dim ``d`` (192 or 256) on ``sms`` SMs: the power-of-two cluster
+    (up to ``WIDE_CLUSTER_MAX``, and no more splits than 16-slot groups)
+    nearest below ``WIDE_BLOCKS_PER_SM`` blocks an SM, since a block's fixed
+    costs (its first loads, the merge) outweigh its slots' work on the main
+    path; a cluster above 8 only where its blocks fit two to an SM (splits
+    of at most ``WIDE_PAIR_SLOTS``), else 8. A split of at most
+    ``WIDE_ROUND_MAX`` slots is one round; longer ones go through the ring
+    of ``wide_ring(d)``. Shapes only, never ``n_valid``."""
+    pairs = max(b * kh, 1)
+    cap = min(WIDE_CLUSTER_MAX, 1 << ((-(-s // 16)).bit_length() - 1))
+    cluster = 1
+    while cluster * 2 <= cap and pairs * cluster * 2 <= WIDE_BLOCKS_PER_SM * sms:
+        cluster *= 2
+    chunk = _groups16(-(-s // cluster))
+    if cluster > 8 and chunk > WIDE_PAIR_SLOTS:
+        cluster, chunk = 8, _groups16(-(-s // 8))
+    if chunk <= WIDE_ROUND_MAX:
+        return WidePlan(cluster, chunk, chunk, 1)
+    rows, stages = wide_ring(d)
+    return WidePlan(cluster, chunk, rows, min(-(-chunk // rows), stages))
 
 
 def aligned_caches(k_cache, v_cache):
@@ -50,7 +105,7 @@ def aligned_caches(k_cache, v_cache):
 @functools.cache
 def _entry():
     fn = _build.load("decode_attention").decode_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -61,10 +116,12 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     int tensor of shape () or (B,) on the card -> (B,H,Dv).
 
     Launches the split pass and the merge of the splits (one C call) on
-    PyTorch's current stream, with fp32 partials in a scratch buffer; raises
-    for anything the kernel does not take (CPU tensors included). Caches the
-    16-byte copies cannot read go to the same kernel as padded copies
-    (``aligned_caches``)."""
+    PyTorch's current stream, with fp32 partials in a scratch buffer, or in
+    bf16 above 128 padded head dims the one wide kernel (``decode_wide_plan``);
+    raises for anything the kernel does not take (CPU tensors included).
+    Caches the 16-byte copies (or TMA) cannot read go to the same kernel as
+    padded copies (``aligned_caches``), and on the wide path so does such a
+    q."""
     _build.refuse_graph("decode_attention", q, k_cache, v_cache)
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.ndim != 4:
         raise ValueError(f"decode_attention: q must be 3-D and the caches 4-D, got "
@@ -97,14 +154,22 @@ def decode_attention(q, k_cache, v_cache, n_valid, *, logit_scale=None):
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    q_sb, q_sh = q.stride()[:2]
     k_cache, v_cache = aligned_caches(k_cache, v_cache)
-    splits, chunk = decode_plan(s, b, kh, _sm_count(q.device.index))
-    scratch = torch.empty(b * h * splits * (dv + 2), dtype=torch.float32, device=q.device)
+    sms = _sm_count(q.device.index)
+    if q.dtype == torch.bfloat16 and padded_head_dim(dh, dv) > 128:
+        if not tma_describable(q):   # q's rows go by 16-byte copies too
+            q = pad_head_dim(q)
+        splits, chunk, rows, stages = decode_wide_plan(s, b, kh, padded_head_dim(dh, dv), sms)
+        scratch = torch.empty(b * kh * splits * (32 + 16 * -(-dv // 4) * 4),
+                              dtype=torch.float32, device=q.device)
+    else:
+        (splits, chunk), rows, stages = decode_plan(s, b, kh, sms), 0, 0
+        scratch = torch.empty(b * h * splits * (dv + 2), dtype=torch.float32, device=q.device)
+    q_sb, q_sh = q.stride()[:2]
     with torch.cuda.device(q.device):   # launch on the tensors' card
         err = _entry()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
                        v_cache.data_ptr(), nv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                       b, s, h, kh, dh, dv, splits, chunk, q_sb, q_sh,
+                       b, s, h, kh, dh, dv, splits, chunk, rows, stages, q_sb, q_sh,
                        *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
                        _build.stream_handle(q.device))
     if err:
