@@ -166,7 +166,34 @@ Phases, in order; any failure exits non-zero at once:
      kernels at gemma-2b's shapes beside their bounds, their plain versions
      and SDPA (rows ``<kernel>@gemma-2b`` of the ``kernels`` line, launches
      of the gemma-2b runs);
- 13. print the card's line, the ``kernels`` JSON line, then the result line.
+ 13. the embeds front end and the MoE family, at full width: serve
+     internvl2-76b at 8 of its 80 layers from ``BATCH`` x ``PROMPT`` random
+     bf16 embeds through ``serve.main`` (launches, finite logits, every
+     decode step against a teacher-forced prefill over the prompt's embeds
+     and the generated tokens' embedding rows, bf16 2e-2 on the relative
+     norm, and at 2 layers in fp32 with a first step from (B,1,D) embeds,
+     elementwise 1e-4; warm prefill and decode, peak memory); train
+     hubert-xlarge at full depth (48 layers, bidirectional heads of 80, a
+     504-unit head) through ``dispatch.build_roundpipe_train_step`` on bf16
+     embeds batches (the launcher refuses a front-end arch): 3 steps with
+     launches against the plan, a fresh state on a repeated batch with a
+     traced step (falling losses), the fp32 ring against the single program
+     at 4 layers with the embedding's gradient zero in both; serve
+     gpt-oss-20b at full depth (launches, finite logits, warm timings, a
+     traced prefill and decode step; decode against a teacher-forced
+     prefill at 2 layers with the capacity factor E/k, where no assignment
+     drops: bf16 2e-2, fp32 1e-4); LoRA-train gpt-oss-20b at 8 layers over
+     its attention through the launcher (launches against the plan, the
+     base bit-identical, every B moved, falling losses on a repeated batch
+     with a traced step that reads the untied head's dense copy), and its
+     fp32 LoRA ring against the merged single program at 2 layers and the
+     capacity factor E/k; then the instances these paths run first beside
+     their bounds, their plain versions and a PyTorch call (rows
+     ``<kernel>@<arch>``: the bidirectional 80-dim forward and backward and
+     the 504-unit xent at hubert-xlarge's training shapes, flash-decode at
+     internvl2-76b's and gpt-oss-20b's group-8 caches); the kernel cases
+     of phase 3 hold these shapes too (hubert's also at S = 777);
+ 14. print the card's line, the ``kernels`` JSON line, then the result line.
 It exits non-zero without a result when no card is present.
 """
 from __future__ import annotations
@@ -188,6 +215,10 @@ ARCH = "qwen3-1.7b"
 WIDE_ARCH = "gemma-2b"                       # d_head 256: the wide kernels on the main path
 WIDE_SERVE_ARCHS = ("gemma-2b", "stablelm-12b")   # d_head 256 and 160
 WIDE_CASE_ARCHS = ("gemma-2b", "stablelm-12b", "nemotron-4-340b")   # 256, 160, 192
+VISION_ARCH = "internvl2-76b"                # the embeds front end, served: group 8, D 128
+AUDIO_ARCH = "hubert-xlarge"                 # the embeds front end, trained: bidirectional, D 80
+MOE_ARCH = "gpt-oss-20b"                     # the MoE family: group 8, D 64, 32 experts top-4
+FAMILY_ARCHS = (VISION_ARCH, AUDIO_ARCH, MOE_ARCH)
 DEVICE = "cuda"
 BATCH, PROMPT, GEN = 4, 1024, 32
 TRAIN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 1024, 3
@@ -341,7 +372,31 @@ def flash_cases():
               ("window-bf16", 1, 300, 4, 2, 64, 64, True, 100, bf16, "bshd"),
               ("bidirectional-bf16", 2, 130, 4, 4, 32, 32, False, None, bf16, "bshd"),
               ("unaligned-bf16", 2, 100, 4, 2, 36, 20, True, None, bf16, "bshd")]
-    return cases + wide_flash_cases()
+    return cases + wide_flash_cases() + family_flash_cases()
+
+
+def family_flash_cases():
+    """The shapes the front-end and MoE paths give the forward, in bf16 and
+    fp32: hubert-xlarge's training shape (one ring worker's B at S 1024, 16
+    heads of 80, bidirectional: the padded-128 instance with ``causal=0``),
+    also at a ragged S of 777; internvl2-76b's prefill (64 query heads over 8
+    kv heads of 128) and gpt-oss-20b's (64 over 8 of 64)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    a = _attn(AUDIO_ARCH)
+    bw = TRAIN_BATCH // TRAIN_WORKERS
+    cases = []
+    for dtype in (bf16, f32):
+        n = dtype_name(dtype)
+        cases += [(f"{AUDIO_ARCH}-{n}", bw, TRAIN_SEQ, a["h"], a["kh"], a["d"], a["d"], False,
+                   None, dtype, "bshd"),
+                  (f"{AUDIO_ARCH}-s777-{n}", bw, 777, a["h"], a["kh"], a["d"], a["d"], False,
+                   None, dtype, "bshd")]
+        for arch in (VISION_ARCH, MOE_ARCH):
+            g = _attn(arch)
+            cases.append((f"{arch}-{n}", BATCH, PROMPT, g["h"], g["kh"], g["d"], g["d"], True,
+                          None, dtype, "bshd"))
+    return cases
 
 
 def wide_flash_cases():
@@ -442,6 +497,12 @@ def decode_cases():
     cases += [(f"unaligned-{dtype_name(dtype)}", 2, 300, 8, 2, 36, 20, [300, 7], dtype,
                "misaligned") for dtype in (f32, bf16)]
     cases += wide_decode_cases()
+    # the group-8 serving caches of internvl2-76b (D 128) and gpt-oss-20b (D 64)
+    for arch in (VISION_ARCH, MOE_ARCH):
+        g = _attn(arch)
+        for dtype in (bf16, f32):
+            cases.append((f"{arch}-{dtype_name(dtype)}", BATCH, s_srv, g["h"], g["kh"], g["d"],
+                          g["d"], [s_srv, s_srv - 31, 1, 517][:BATCH], dtype, "dense"))
     # the split pass's edges, on the plan the wrapper makes for these shapes:
     # S one past a whole number of splits; n_valid on a split edge and one
     # past it (later splits empty), 0 (uniform over all S) and past S
@@ -565,14 +626,24 @@ def phase_kernels():
     wide = {c[0] for c in wide_flash_cases() + wide_decode_cases()}
     print("kernels vs plain, head dims above 128: " + json.dumps(
         {f"{name}[{label}]": e for (name, label), e in errs.items() if label in wide}))
+    _print_family_errs(errs)
     return _err_summary(errs, "serving", extra=("hymba",), wide=wide)
+
+
+def _print_family_errs(errs):
+    """The max abs errors of the front end's and the MoE family's cases."""
+    print("kernels vs plain, front end and MoE shapes: " + json.dumps(
+        {f"{name}[{label}]": e for (name, label), e in errs.items()
+         if label.startswith(FAMILY_ARCHS)}))
 
 
 def _err_summary(errs, main, extra=(), wide=()):
     """{name: worst max abs err over every case, "name@main": the error at
     the main path's shape (and "name@label" for each ``extra`` label),
     "name@wide": the worst over the ``wide`` labels (the head dims above 128)
-    and "name@<arch>": the error at each of ``WIDE_SERVE_ARCHS``' bf16 case}."""
+    "name@<arch>": the error at the bf16 case of each of ``WIDE_SERVE_ARCHS``
+    and ``FAMILY_ARCHS``, and "name@<arch>:worst" the worst over every case
+    of a ``FAMILY_ARCHS`` arch}."""
     out = {}
     for (name, label), e in errs.items():
         out[name] = max(out.get(name, 0.0), e)
@@ -582,9 +653,13 @@ def _err_summary(errs, main, extra=(), wide=()):
             out[f"{name}@{label}"] = e
         if label in wide:
             out[f"{name}@wide"] = max(out.get(f"{name}@wide", 0.0), e)
-        for arch in WIDE_SERVE_ARCHS:
+        for arch in WIDE_SERVE_ARCHS + FAMILY_ARCHS:
             if label == f"{arch}-bfloat16":
                 out[f"{name}@{arch}"] = e
+        for arch in FAMILY_ARCHS:
+            if label.startswith(arch):
+                key = f"{name}@{arch}:worst"
+                out[key] = max(out.get(key, 0.0), e)
     return out
 
 
@@ -635,6 +710,17 @@ def flash_bwd_cases():
               ("strided-bhsd", 2, 200, 8, 2, 128, 128, True, 64, bf16, "bhsd"),
               # rows TMA cannot read (72- and 40-byte heads): the wrapper's padded copies
               ("unaligned-bf16", 2, 100, 4, 2, 36, 20, True, None, bf16, "bshd")]
+    # the front end's and the MoE family's training shapes: hubert-xlarge's
+    # bidirectional 80-dim heads (and a ragged S), gpt-oss-20b's LoRA ring
+    a, g = _attn(AUDIO_ARCH), _attn(MOE_ARCH)
+    for dtype in (bf16, f32):
+        n = dtype_name(dtype)
+        cases += [(f"{AUDIO_ARCH}-{n}", bw, TRAIN_SEQ, a["h"], a["kh"], a["d"], a["d"], False,
+                   None, dtype, "bshd"),
+                  (f"{AUDIO_ARCH}-s777-{n}", bw, 777, a["h"], a["kh"], a["d"], a["d"], False,
+                   None, dtype, "bshd")]
+    cases.append((f"{MOE_ARCH}-bfloat16", bw, TRAIN_SEQ, g["h"], g["kh"], g["d"], g["d"], True,
+                  None, bf16, "bshd"))
     return cases + wide_bwd_cases()
 
 
@@ -721,6 +807,12 @@ def xent_cases():
     cases += [("ragged-v", 100, 64, 1000, f32, "tied", 4),
               ("ragged-tv-bf16", 37, 40, 333, bf16, "tied", 3),
               ("ragged-d-bf16", 70, 100, 4097, bf16, "dense", 5)]
+    # hubert-xlarge's untied 504-unit head (two vocabulary tiles, the second
+    # 248 columns into its 256) and gpt-oss-20b's untied head
+    audio, moe = get_config(AUDIO_ARCH), get_config(MOE_ARCH)
+    cases += [(f"{AUDIO_ARCH}-bfloat16", t, audio.d_model, audio.vocab_size, bf16, "dense", 4),
+              (f"{AUDIO_ARCH}-float32", t, audio.d_model, audio.vocab_size, f32, "dense", 4),
+              (f"{MOE_ARCH}-bfloat16", t, moe.d_model, moe.vocab_size, bf16, "dense", 4)]
     return cases
 
 
@@ -796,6 +888,10 @@ def phase_train_kernels():
         {f"{name}[{label}]": e for (name, label), e in errs.items() if label in wide}))
     print("flash_attention_bwd vs plain, head dims above 128, worst relative norm of dq, dk, "
           "dv: " + json.dumps({label: r for label, r in rels.items() if label in wide}))
+    _print_family_errs(errs)
+    print("flash_attention_bwd vs plain, front end and MoE shapes, worst relative norm of dq, "
+          "dk, dv: " + json.dumps({label: r for label, r in rels.items()
+                                   if label.startswith(FAMILY_ARCHS)}))
     return _err_summary(errs, "training", wide=wide)
 
 
@@ -803,15 +899,16 @@ def phase_train_kernels():
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def phase_serve(arch=ARCH):
+def _serve_launcher(arch):
+    """``serve.main`` for ``arch`` (``BATCH`` x ``PROMPT``, ``GEN`` greedy
+    tokens), the attention kernels' counts set to 0 just before and read
+    just after: flash once a layer, flash-decode once a layer a step; finite
+    logits. Returns (served, launches), with the run's peak memory."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import build_decode_step, build_prefill_step
-    from repro_torch.models import transformer as T
     from repro_torch.models.config import get_config
-    from repro_torch.optim.adam import tree_leaves
 
     cfg = get_config(arch)
     torch.cuda.empty_cache()
@@ -825,12 +922,25 @@ def phase_serve(arch=ARCH):
     served.peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"main path launches ({arch}): {launches}, peak memory "
           f"{served.peak_memory_gb:.2f} GB")
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"flash launches {launches['flash_attention']} != {cfg.n_layers}")
-    check(launches["decode_attention"] == cfg.n_layers * GEN,
-          f"decode launches {launches['decode_attention']} != {cfg.n_layers * GEN}")
-    check(all(bool(torch.isfinite(lg).all()) for lg in served.logits), "non-finite logits")
+    check(launches == {"flash_attention": cfg.n_layers,
+                       "decode_attention": cfg.n_layers * GEN},
+          f"{arch}: launches {launches}, not {cfg.n_layers} and {cfg.n_layers * GEN}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in served.logits),
+          f"{arch}: non-finite logits")
     check(tuple(served.tokens.shape) == (BATCH, GEN), f"tokens {tuple(served.tokens.shape)}")
+    return served, launches
+
+
+
+def phase_serve(arch=ARCH):
+    import torch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adam import tree_leaves
+
+    cfg = get_config(arch)
+    served, launches = _serve_launcher(arch)
 
     # Decode step 1 consumed the first generated token after the prompt; a
     # prefill of prompt + that token must give the same next-token logits.
@@ -992,7 +1102,7 @@ def _warm_serving(cfg, served):
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     prefill = build_prefill_step(cfg, PROMPT + GEN)
     decode = build_decode_step(cfg)
-    batch = {"tokens": served.prompts}
+    batch = {"embeds" if cfg.frontend else "tokens": served.prompts}
     t_pre = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1239,10 +1349,12 @@ def _leaf_names(tree, prefix=""):
     return [prefix.lstrip(".")]
 
 
-def _ring_vs_single(dtype_label, arch=ARCH):
+def _ring_vs_single(dtype_label, arch=ARCH, n_layers=2):
     """In bf16 also the ring's grads through the plain versions against the
     same oracle: the floor that the ring's own order of bf16 operations sets,
-    printed beside the kernels' error (it gates nothing)."""
+    printed beside the kernels' error (it gates nothing). A front-end arch
+    takes random embeds for tokens; its embedding table's gradient is zero
+    in the ring and absent from the single program (``embed_grad_zero``)."""
     import torch
     from repro_torch.core.dispatch import build_roundpipe_grads_fn
     from repro_torch.core.plan import plan_from_config, uniform_partition
@@ -1251,15 +1363,20 @@ def _ring_vs_single(dtype_label, arch=ARCH):
     from repro_torch.optim.adam import tree_leaves
 
     dtype = getattr(torch, dtype_label)
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    # one layer per slot, so the check runs an F, the fused FB and a B slot
-    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(2))
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    # one layer per slot, so the check runs F slots, the fused FB and B slots
+    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(n_layers))
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     params = T.init_params(cfg, gen, dtype=dtype, device=DEVICE)
-    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_WORKERS, 256), generator=gen, device=DEVICE)
+    if cfg.frontend:
+        batch = {"embeds": torch.randn((TRAIN_WORKERS, 256, cfg.d_model), generator=gen,
+                                       device=DEVICE).to(dtype)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_WORKERS, 256), generator=gen,
+                                         device=DEVICE)}
     labels = torch.randint(0, cfg.vocab_size, (TRAIN_WORKERS, 256), generator=gen, device=DEVICE)
     labels[:, ::5] = -100
-    batch = {"tokens": tokens, "labels": labels}
+    batch["labels"] = labels
     ring_fn = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan)
     counters = _train_counters()
     before = {k: fn.launches for k, fn in counters.items()}
@@ -1275,9 +1392,15 @@ def _ring_vs_single(dtype_label, arch=ARCH):
         for x in leaves:
             x.requires_grad_()
         want_loss = T.loss_fn(params, batch, cfg, remat=False)
-        want = torch.autograd.grad(want_loss, leaves)
+        want = torch.autograd.grad(want_loss, leaves, allow_unused=bool(cfg.frontend))
     check({k: fn.launches for k, fn in counters.items()} == ring,
           "the single-program oracle launched a kernel")
+    embed_zero = None
+    if cfg.frontend:     # the table is unused: zero in the ring, no gradient in autograd
+        unused = [w is None for w in want]
+        embed_zero = (not grads["embed"].any().item()
+                      and unused == [x is params["embed"] for x in leaves])
+        want = [torch.zeros_like(x) if w is None else w for x, w in zip(leaves, want)]
     got = tree_leaves(grads)
     check(len(got) == len(want), "ring grads and single-program grads differ in structure")
     names = _leaf_names(params)
@@ -1288,9 +1411,11 @@ def _ring_vs_single(dtype_label, arch=ARCH):
     rel_loss = abs(float(loss) - want_loss) / abs(want_loss)
     out = {"loss_rel": rel_loss, "worst_rel": worst, "worst_norm_rel": norms[0][0],
            "worst_leaves": {n: e for e, n in norms[:3]}}
+    if embed_zero is not None:
+        out["embed_grad_zero"] = embed_zero
     if floor is not None:
         out["plain_ring_worst_norm_rel"] = max(_rel(g, w) for g, w in zip(floor, want))
-    print(f"ring vs single program ({arch}), {dtype_label}, full width, 2 layers, plan "
+    print(f"ring vs single program ({arch}), {dtype_label}, full width, {n_layers} layers, plan "
           f"{plan.describe()}: loss {float(loss):.6f} vs {want_loss:.6f} (rel {rel_loss:.2e}), "
           f"worst relative grad error {worst:.3e} (max abs), {norms[0][0]:.3e} (norm, "
           f"{norms[0][1]}) over {len(got)} leaves; "
@@ -2241,9 +2366,13 @@ def phase_dequant_timings(errs, launches):
 LORA_RANK = 8
 
 
-def _lora_cfg():
-    from repro_torch.models.lora import LoraConfig
-    return LoraConfig(rank=LORA_RANK)
+def _lora_cfg(cfg=None):
+    """Rank ``LORA_RANK`` over the default targets, or over those of them
+    that apply to ``cfg`` (the attention only on an MoE layer)."""
+    from repro_torch.models.lora import LoraConfig, applicable_targets
+    if cfg is None:
+        return LoraConfig(rank=LORA_RANK)
+    return LoraConfig(rank=LORA_RANK, target_modules=applicable_targets(cfg))
 
 
 def phase_lora_train(pool_dtype="none", grad_compress="none", microbatches=None):
@@ -2375,7 +2504,9 @@ def _merged_oracle(params, adapters, lcfg, batch, cfg):
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
-def _lora_ring_vs_single(dtype_label):
+def _lora_ring_vs_single(dtype_label, arch=ARCH, **extra):
+    """``extra`` replaces fields of ``arch``'s config (another depth than 2
+    layers, another capacity factor)."""
     import torch
     from repro_torch.core.dispatch import build_roundpipe_grads_fn
     from repro_torch.core.plan import plan_from_config, uniform_partition
@@ -2385,9 +2516,10 @@ def _lora_ring_vs_single(dtype_label):
     from repro_torch.optim.adam import tree_leaves, tree_map
 
     dtype = getattr(torch, dtype_label)
-    lcfg = _lora_cfg()
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
-    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(2), lora=lcfg)
+    cfg = dataclasses.replace(get_config(arch), **{"n_layers": 2, **extra})
+    lcfg = _lora_cfg(cfg)
+    plan = plan_from_config(cfg, TRAIN_WORKERS, partition=uniform_partition(cfg.n_layers),
+                            lora=lcfg)
     gen = torch.Generator(device=DEVICE).manual_seed(15)
     params = T.init_params(cfg, gen, dtype=dtype, device=DEVICE)
     # B away from its zero init, or every A grad is exactly zero
@@ -2436,7 +2568,8 @@ def _lora_ring_vs_single(dtype_label):
                                    "single_bf16_vs_fp32": ratios[0][3]}
         out["ring_vs_fp32_worst"] = max(r[2] for r in ratios)
         out["single_bf16_vs_fp32_worst"] = max(r[3] for r in ratios)
-    print(f"LoRA ring vs single program, {dtype_label}, full width, 2 layers, r={lcfg.rank}, "
+    print(f"LoRA ring vs single program ({arch}), {dtype_label}, full width, {cfg.n_layers} "
+          f"layers, r={lcfg.rank}, targets {lcfg.target_modules}, "
           f"plan {plan.describe()}: loss {float(loss):.6f} vs {want_loss:.6f} (rel "
           f"{rel_loss:.2e}), worst relative adapter grad error {worst:.3e} (max abs), "
           f"{norms[0][0]:.3e} (norm, {norms[0][1]}) over {len(got)} leaves, "
@@ -3532,6 +3665,553 @@ def phase_wide_timings(errs, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the embeds front end and the MoE family
+# ---------------------------------------------------------------------------
+
+VISION_SERVE_LAYERS = 8      # internvl2-76b's 80 layers cut to 8: ~17.9 GB of bf16 weights
+MOE_LORA_LAYERS = 8          # gpt-oss-20b's 24 layers cut to 8 for the LoRA ring
+FAMILY_REPEAT_LR = 1e-5      # the front end's repeated batch, as phase_repeated_batch's
+
+
+def _cut_arch(arch, **fields):
+    """``arch`` with ``fields`` replaced (a depth cut), registered for the
+    launchers under a derived name."""
+    from repro_torch.models.config import REGISTRY, get_config, register
+    name = arch + "".join(f"-{k}{v}" for k, v in sorted(fields.items()))
+    if name not in REGISTRY:
+        register(dataclasses.replace(get_config(arch), name=name, **fields))
+    return name
+
+
+def _no_drop(cfg):
+    """``cfg`` at the capacity factor E/k: every expert can take every token
+    of a batch, so no assignment is dropped whatever the batch's size."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+def _teacher_forced(params, cfg, inputs, steps):
+    """The logits (B, steps + 1, V) fp32 of the last ``steps`` + 1 positions
+    of one prefill over ``inputs`` ({"tokens"} or {"embeds"}): what a prefill
+    of the prompt and ``steps`` decode steps over the rest should give."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.inference_mode():
+        s = next(iter(inputs.values())).shape[1]
+        x, _ = T.prefill(params, inputs, cfg, s, dtype=params["embed"].dtype)
+        return (x[:, -steps - 1:] @ T.lm_head_weights(params, cfg)).float()
+
+
+def _feed(params, prompt, steps):
+    """The prompt ({"tokens"} or {"embeds"}) followed by the decode steps'
+    inputs, (B,) tokens or (B,1,D) embeds, as one prefill's inputs; a token
+    after an embeds prompt enters as its embedding row."""
+    import torch
+    key, x = next(iter(prompt.items()))
+    if key == "tokens":
+        return {"tokens": torch.cat([x] + [f[:, None] for f in steps], dim=1)}
+    emb = params["embed"]
+    return {"embeds": torch.cat([x] + [(f if f.ndim == 3 else emb[f[:, None]]).to(x.dtype)
+                                       for f in steps], dim=1)}
+
+
+def _serve_and_feed(params, cfg, prompt, steps, first=None):
+    """Prefill ``prompt``, then ``steps`` decode steps (the first from the
+    (B,1,D) embeds ``first`` when given, the others greedy): (the logits of
+    the prefill and of every step (B, steps + 1, V), the inputs of one
+    teacher-forced prefill over the same tokens)."""
+    import torch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    s = next(iter(prompt.values())).shape[1]
+    logits, cache = build_prefill_step(cfg, s + steps)(params, prompt)
+    decode = build_decode_step(cfg)
+    got, fed = [logits], []
+    for i in range(steps):
+        fed.append(first if i == 0 and first is not None else got[-1].argmax(-1))
+        logits, cache = decode(params, cache, fed[-1])
+        got.append(logits)
+    del cache
+    return torch.stack(got, dim=1), _feed(params, prompt, fed)
+
+
+# The bf16 bar of the serving checks below, on the relative norm of the
+# logits over every decode step: the bf16 decode path no farther from the
+# fp32 teacher-forced prefill of the same weights and inputs than the bf16
+# prefill is, but for this factor (the rule of the LoRA ring check and of
+# tests/test_torch_ssm.py). Between themselves two bf16 paths that round at
+# other points part by ~2e-2 over 32 steps of internvl2-76b at 8 layers, and
+# a top-k router breaks a near-tie one way on one path and the other way on
+# the other (gpt-oss-20b at 2 layers: 5.9e-2, max abs 2.6; an H100 at 700 W),
+# so the distance between them measures rounding, not the decode path; the
+# distance to fp32 does.
+FAMILY_BF16_TRUTH_RATIO = 1.25
+
+
+def _bf16_vs_truth(params, cfg, inputs, steps, got):
+    """The bf16 decode logits ``got`` (B, steps + 1, V) against one bf16
+    teacher-forced prefill over ``inputs`` and against the same prefill on an
+    fp32 copy of the weights: fails unless the decode is no farther from
+    fp32 than ``FAMILY_BF16_TRUTH_RATIO`` times the bf16 prefill is."""
+    import torch
+    want = _teacher_forced(params, cfg, inputs, steps)
+    p32 = _cast(params, torch.float32)
+    truth = _teacher_forced(p32, cfg, inputs, steps)
+    del p32
+    out = {"decode_vs_prefill": _rel(got, want), "decode_vs_fp32": _rel(got, truth),
+           "prefill_vs_fp32": _rel(want, truth),
+           "decode_vs_prefill_max_abs": (got - want).abs().max().item(),
+           "argmax_agrees_with_fp32": {
+               "decode": (got.argmax(-1) == truth.argmax(-1)).float().mean().item(),
+               "prefill": (want.argmax(-1) == truth.argmax(-1)).float().mean().item()}}
+    print(f"decode vs teacher-forced prefill, bf16, {cfg.name}, {cfg.n_layers} layers, {steps} "
+          f"steps, relative norm: " + json.dumps(out))
+    check(out["decode_vs_fp32"] <= FAMILY_BF16_TRUTH_RATIO * out["prefill_vs_fp32"],
+          f"{cfg.name}: bf16 decode logits lie farther from the fp32 prefill than the bf16 "
+          "prefill does")
+    del want, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fp32_vs_teacher(cfg, prompt_len, steps, seed, embeds_first=False):
+    """At full width in fp32 (``cfg``'s depth): decode against a
+    teacher-forced prefill, elementwise rtol and atol 1e-4. Returns the max
+    abs error."""
+    import torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p32 = T.init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    if cfg.frontend:
+        prompt = {"embeds": torch.randn((2, prompt_len, cfg.d_model), generator=gen,
+                                        device=DEVICE)}
+    else:
+        prompt = {"tokens": torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen,
+                                          device=DEVICE)}
+    first = (torch.randn((2, 1, cfg.d_model), generator=gen, device=DEVICE)
+             if embeds_first else None)
+    got, fed = _serve_and_feed(p32, cfg, prompt, steps, first)
+    want = _teacher_forced(p32, cfg, fed, steps)
+    err = (got - want).abs().max().item()
+    print(f"decode vs teacher-forced prefill, fp32, {cfg.name}, {cfg.n_layers} layers, prompt "
+          f"{prompt_len}, {steps} steps{' (the first from embeds)' if embeds_first else ''}: "
+          f"max abs err {err:.3e}")
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"{cfg.name}: fp32 decode logits disagree with the teacher-forced prefill")
+    del p32, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_frontend_serve():
+    """internvl2-76b at full width and ``VISION_SERVE_LAYERS`` of its 80
+    layers (a depth cut) through ``serve.main``: ``BATCH`` prompts of
+    ``PROMPT`` random bf16 embeds, ``GEN`` greedy tokens, launches and finite
+    logits (``_serve_launcher``); every decode step against a teacher-forced
+    prefill over the prompt's embeds and the generated tokens' embedding
+    rows (``_bf16_vs_truth``: no farther from the fp32 prefill than the bf16
+    prefill is, but for 1.25x); warm prefill and decode steps and peak
+    memory. Then at full width and 2 layers in fp32:
+    a prompt of 256 embeds, one decode step from (B,1,D) embeds and 4 from
+    tokens, against the same teacher-forced prefill, elementwise 1e-4."""
+    import torch
+    from repro_torch.models.config import get_config
+
+    name = _cut_arch(VISION_ARCH, n_layers=VISION_SERVE_LAYERS)
+    cfg = get_config(name)
+    served, launches = _serve_launcher(name)
+    check(served.prompts.dtype == torch.bfloat16 and served.prompts.ndim == 3,
+          f"{name}: the prompts are not bf16 embeds")
+    out = {"launches": launches, "peak_memory_gb": served.peak_memory_gb,
+           **_warm_serving(cfg, served)}
+    out["bf16_vs_teacher"] = _bf16_vs_truth(
+        served.params, cfg, _feed(served.params, {"embeds": served.prompts},
+                                  list(served.tokens.unbind(1))), GEN,
+        torch.stack(served.logits, dim=1))
+    del served
+    gc.collect()
+    out["fp32_2_layers_max_abs"] = _fp32_vs_teacher(
+        dataclasses.replace(get_config(VISION_ARCH), n_layers=2), 256, 5, 24,
+        embeds_first=True)
+    print(f"front-end serve ({name}) " + json.dumps(out))
+    return out
+
+
+def phase_frontend_train():
+    """hubert-xlarge at full width and depth (48 layers, 16 bidirectional
+    heads of 80, a 504-unit head; ~944 M parameters) through
+    ``dispatch.build_roundpipe_train_step`` with embeds batches (the
+    launcher refuses a front-end arch: its dataset makes tokens): N = 4, the
+    auto plan, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` random bf16 frame embeds and
+    labels in [0, 504), AdamW (lr 3e-4, fp32 master), prefetch on.
+    ``TRAIN_STEPS`` steps on fresh batches, the counts set to 0 just before
+    and read just after and held against the plan, finite losses, step ms
+    and peak memory; then a fresh state at learning rate 1e-5 on one
+    repeated batch for 3 steps, the middle one traced (slot kinds, flash and
+    xent device ms): the loss falls. Then the fp32 ring against the single
+    program at full width and 4 layers: loss rtol 1e-4, worst relative
+    5e-3, the embedding's gradient zero in both."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_train_step, init_roundpipe_state
+    from repro_torch.core.plan import plan_from_config
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.config import get_config
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config(AUDIO_ARCH)
+    plan = plan_from_config(cfg, TRAIN_WORKERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+
+    def batch():
+        return {"embeds": torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                                      device=DEVICE).to(torch.bfloat16),
+                "labels": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                        generator=gen, device=DEVICE)}
+
+    def build(lr):
+        step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                              xent_chunk=min(256, TRAIN_SEQ), partition=plan,
+                              opt=OptConfig(lr=lr))
+        step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH,
+                                             TRAIN_SEQ, plan=plan)
+        state = init_roundpipe_state(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                                     step_cfg, n_workers=TRAIN_WORKERS, device=DEVICE)
+        return step, {"s": state}
+
+    def run(step, box, b, losses, times):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["s"], m = step(box["s"], b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+
+    counters = _train_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, box = build(3e-4)
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        run(step, box, b, losses, step_s)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v for k, v in _ring_launches(plan, TRAIN_STEPS, False).items() if k in counters}
+    print(f"front-end train launches ({AUDIO_ARCH}, plan {plan.describe()}): {launches} (the "
+          f"plan predicts {want}), peak memory {peak / 1e9:.2f} GB, losses {losses}, step ms "
+          f"{[x * 1e3 for x in step_s]}")
+    check(launches == want, f"{AUDIO_ARCH}: training launches {launches} != the plan's {want}")
+    check(all(math.isfinite(x) for x in losses), f"{AUDIO_ARCH}: non-finite losses {losses}")
+    del box, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step, box = build(FAMILY_REPEAT_LR)
+    b = batch()
+    rep_losses, rep_s = [], []
+    run(step, box, b, rep_losses, rep_s)
+    traced = _trace(lambda: run(step, box, b, rep_losses, rep_s), 1)
+    run(step, box, b, rep_losses, rep_s)
+    print(f"repeated batch ({AUDIO_ARCH}, lr {FAMILY_REPEAT_LR}): losses {rep_losses}")
+    check(all(math.isfinite(x) for x in rep_losses), f"non-finite losses {rep_losses}")
+    check(rep_losses[-1] < rep_losses[0],
+          f"{AUDIO_ARCH}: the loss does not fall on a repeated batch: {rep_losses}")
+    del box, b, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ring = _ring_vs_single("float32", AUDIO_ARCH, n_layers=4)
+    check(ring["loss_rel"] <= 1e-4, f"{AUDIO_ARCH} ring loss disagrees with the single program")
+    check(ring["worst_rel"] < 5e-3, f"{AUDIO_ARCH} ring grads disagree with the single program")
+    check(ring["embed_grad_zero"], f"{AUDIO_ARCH}: the embedding's gradient is not zero")
+    warm = sorted(step_s[1:] + rep_s)
+    out = {"launches": launches, "peak_memory_gb": peak / 1e9, "plan": plan.describe(),
+           "step_ms": [x * 1e3 for x in step_s], "losses": losses,
+           "repeated_batch_losses": rep_losses,
+           "repeated_batch_step_ms": [x * 1e3 for x in rep_s],
+           "warm_step_ms_median": warm[len(warm) // 2] * 1e3,
+           "warm_frames_per_s": TRAIN_BATCH * TRAIN_SEQ / warm[len(warm) // 2],
+           "traced_step": traced, "ring_vs_single_fp32_4_layers": ring}
+    print(f"front-end train ({AUDIO_ARCH}) " + json.dumps(out))
+    return out
+
+
+def phase_moe_serve():
+    """gpt-oss-20b at full width and depth (24 layers, 32 experts top-4,
+    ~41.8 GB of bf16 weights) through ``serve.main``: ``BATCH`` x ``PROMPT``
+    tokens, ``GEN`` greedy tokens, launches and finite logits
+    (``_serve_launcher``); warm prefill and decode steps, peak memory, a
+    traced prefill and a traced decode step. At the published capacity
+    factor a decode step routes ``BATCH`` tokens into a capacity of 1 an
+    expert and drops assignments that the prefill keeps, so decode is held
+    against a teacher-forced prefill at full width and 2 layers with the
+    capacity factor E/k (no drops; a cut named in PERF.md §4): bf16 over
+    ``GEN`` steps after a ``PROMPT``-token prompt (``_bf16_vs_truth``), fp32
+    over 4 steps after 256 tokens (elementwise 1e-4)."""
+    import torch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+
+    cfg = get_config(MOE_ARCH)
+    served, launches = _serve_launcher(MOE_ARCH)
+    out = {"launches": launches, "peak_memory_gb": served.peak_memory_gb,
+           **_warm_serving(cfg, served)}
+    prefill = build_prefill_step(cfg, PROMPT + GEN)
+    decode = build_decode_step(cfg)
+    batch = {"tokens": served.prompts}
+    out["traced_prefill"] = _trace(lambda: prefill(served.params, batch), 1)
+    logits, cache = prefill(served.params, batch)
+    state = {"tok": logits.argmax(-1), "cache": cache}
+
+    def step():
+        lg, state["cache"] = decode(served.params, state["cache"], state["tok"])
+        state["tok"] = lg.argmax(-1)
+
+    out["traced_decode_step"] = _trace(step, 4)
+    del served, state, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = _no_drop(dataclasses.replace(cfg, n_layers=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    p16 = T.init_params(cfg2, gen, device=DEVICE)
+    toks = torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT), generator=gen, device=DEVICE)
+    got, fed = _serve_and_feed(p16, cfg2, {"tokens": toks}, GEN)
+    out["bf16_vs_teacher_2_layers"] = _bf16_vs_truth(p16, cfg2, fed, GEN, got)
+    del p16, got
+    out["fp32_2_layers_max_abs"] = _fp32_vs_teacher(cfg2, 256, 4, 26)
+    print(f"MoE serve ({MOE_ARCH}) " + json.dumps(out))
+    return out
+
+
+def phase_moe_lora_train():
+    """gpt-oss-20b at full width and ``MOE_LORA_LAYERS`` of its 24 layers (a
+    depth cut) through the launcher: LoRA rank 8 over the attention
+    (``--lora-targets attn``: the experts and the router stay frozen, as
+    ``applicable_targets`` has it), one round, prefetch on, the counts set
+    to 0 just before and read just after and held against the plan, finite
+    losses, the base bit-identical to its seeded initial weights, every
+    adapter B moved. Then 3 steps on one repeated batch from the final state
+    (lr 3e-4), the middle one traced (slot kinds, the untied head's dense
+    copy): the loss falls. Then the fp32 LoRA ring against the single
+    program on the merged weights at full width and 2 layers with the
+    capacity factor E/k: capacity follows the micro-batch, so with drops the
+    ring and the single program route differently by design (loss rtol
+    1e-4, worst relative 5e-3)."""
+    import torch
+    from repro_torch.core.dispatch import build_roundpipe_train_step, pad_pool
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+    from repro_torch.models.lora import at_path, target_leaf_paths
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adam import tree_leaves
+
+    name = _cut_arch(MOE_ARCH, n_layers=MOE_LORA_LAYERS)
+    cfg = get_config(name)
+    lcfg = _lora_cfg(cfg)
+    counters = _train_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    out = train.main(["--arch", name, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
+                      "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq",
+                      str(TRAIN_SEQ), "--lora-rank", str(LORA_RANK), "--lora-targets",
+                      ",".join(lcfg.target_modules), "--steps", str(TRAIN_STEPS),
+                      "--log-every", "1", "--device", DEVICE])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    plan = out["plan"]
+    want = {k: v for k, v in _ring_launches(plan, TRAIN_STEPS, False).items() if k in counters}
+    print(f"MoE LoRA train ({name}, r={LORA_RANK}, targets {lcfg.target_modules}, plan "
+          f"{plan.describe()}) launches: {launches} (the plan predicts {want}), peak memory "
+          f"{peak / 1e9:.2f} GB, step ms {[x * 1e3 for x in out['step_s']]}")
+    check(launches == want, f"{name}: training launches {launches} != the plan's {want}")
+    check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
+
+    state = out.pop("state")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)   # the launcher's seed: base first
+    init = pad_pool(T.init_params(cfg, gen, device=DEVICE), cfg, TRAIN_WORKERS)
+    params = state["params"]
+    base_same = all(torch.equal(a, b) for key in ("layers", "embed", "final_norm", "lm_head")
+                    for a, b in zip(tree_leaves(init[key]), tree_leaves(params[key])))
+    del init
+    check(base_same, f"{name}: the frozen base changed under LoRA training")
+    paths = target_leaf_paths(params["layers"], lcfg)
+    check(all(p.startswith("attn.") for p in paths), f"{name}: LoRA targets {paths}")
+    b_moved = all(bool(at_path(row, path)["B"].any())
+                  for row in params["lora"][:plan.n_layers] for path in paths)
+    check(b_moved, f"{name}: an adapter B did not move off its zero init")
+
+    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
+                          xent_chunk=min(256, TRAIN_SEQ), partition=plan, lora=lcfg,
+                          opt=OptConfig(lr=3e-4))
+    step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                         plan=plan)
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
+    box = {"s": state}
+    del state, params
+    rep_losses, rep_s = [], []
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["s"], m = step(box["s"], batch)
+        rep_losses.append(float(m["loss"]))
+        rep_s.append(time.perf_counter() - t0)
+
+    one()
+    traced = _trace(one, 1)
+    one()
+    print(f"repeated batch ({name}, LoRA r={LORA_RANK}, lr 3e-4): losses {rep_losses}")
+    check(all(math.isfinite(x) for x in rep_losses), f"non-finite losses {rep_losses}")
+    check(rep_losses[-1] < rep_losses[0],
+          f"{name}: the loss does not fall on a repeated batch: {rep_losses}")
+    del box, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ring = _lora_ring_vs_single("float32", MOE_ARCH,
+                                capacity_factor=_no_drop(get_config(MOE_ARCH)).capacity_factor)
+    check(ring["loss_rel"] <= 1e-4, f"{MOE_ARCH} LoRA ring loss disagrees with the single "
+                                    "program (fp32)")
+    check(ring["worst_rel"] < 5e-3, f"{MOE_ARCH} LoRA ring grads disagree with the single "
+                                    "program (fp32)")
+    report = {"launches": launches, "peak_memory_gb": peak / 1e9, "plan": plan.describe(),
+              "step_ms": [x * 1e3 for x in out["step_s"]], "losses": out["losses"],
+              "repeated_batch_losses": rep_losses,
+              "repeated_batch_step_ms": [x * 1e3 for x in rep_s], "traced_step": traced,
+              "base_bit_identical": base_same, "adapter_b_moved": b_moved,
+              "ring_vs_single_fp32_2_layers": ring}
+    print(f"MoE LoRA train ({name}) " + json.dumps(report))
+    return report
+
+
+def phase_family_timings(errs, launches):
+    """The instances this slice's paths run that no earlier path did, bf16,
+    beside their bounds, their plain versions and a PyTorch call (a
+    yardstick only: the port never calls it): the flash forward and backward
+    at hubert-xlarge's training shape (one ring worker's B=2, S=1024, 16
+    bidirectional heads of 80, padded to 128; SDPA's forward, and its
+    backward alone queued behind a sleep kernel), the cross-entropy forward
+    at its head (T=2048, D=1280, V=504, untied; ``F.cross_entropy(x @ W)``)
+    and flash-decode at the group-8 serving caches of internvl2-76b (D 128)
+    and gpt-oss-20b (D 64), B=4, S=1056. Rows of the ``kernels`` line named
+    ``<kernel>@<arch>``; launches are those of that arch's runs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.fused_xent import fused_xent
+    from repro_torch.models.config import get_config
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    bf16, elem = torch.bfloat16, 2
+    gqa = _sdpa_gqa()
+    kw = {"enable_gqa": True} if gqa else {}
+    rows = []
+
+    def row(kernel, arch, source, replaces, shape, ms, plain_ms, lib_ms, nbytes, flops,
+            **extra):
+        name = f"{kernel}@{arch}"
+        r = _row(name, source, replaces, launches,
+                 {name: errs[f"{kernel}@{arch}:worst"],
+                  f"{name}@main": errs[f"{kernel}@{arch}"]},
+                 ms, plain_ms, lib_ms, nbytes, flops, "bfloat16")
+        r.update({"shape": shape, **extra})
+        rows.append(r)
+
+    # hubert-xlarge: the bidirectional forward and backward at D 80
+    a = _attn(AUDIO_ARCH)
+    h, kh, d = a["h"], a["kh"], a["d"]
+    bw, s = TRAIN_BATCH // TRAIN_WORKERS, TRAIN_SEQ
+    shape = f"B={bw}, S={s}, H={h}, KH={kh}, D={d}, bidirectional, bf16"
+    sets = [_flash_inputs(bw, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
+    kern = lambda q, k, v: flash_attention(q, k, v, causal=False)   # noqa: E731
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st) for st in sets]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v)   # noqa: E731
+    device_ms = _graph_ms(kern, sets, 5)
+    flops = 2 * bw * h * s * s * (d + d)
+    row("flash_attention", AUDIO_ARCH, "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:78", shape, _time_ms(kern, sets, 10),
+        _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=False), sets[:2], 3),
+        _time_ms(sdpa, lib_sets, 10), (2 * bw * s * h * d + 2 * bw * s * kh * d) * elem, flops,
+        device_ms=device_ms, library_device_ms=_graph_ms(sdpa, lib_sets, 5),
+        tflops=flops / (device_ms * 1e-3) / 1e12)
+    bwd_sets, sdpa_sets = [], []
+    for q, k, v in sets:
+        o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+        bwd_sets.append((q, k, v, o, lse, _rand(o.shape, bf16, gen)))
+    for q, k, v, o, lse, do in bwd_sets:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            ot = F.scaled_dot_product_attention(qt, kt, vt)
+        sdpa_sets.append((ot, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    bwd = lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                                          causal=False)
+    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
+                                                           retain_graph=True)
+    queued = _queued_ms(bwd, bwd_sets, 10)
+    flops = 5 * 2 * bw * h * s * s * d
+    row("flash_attention_bwd", AUDIO_ARCH, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none (the reference differentiates jnp chunked_attention, "
+        "src/repro/models/layers.py:76)", shape, _time_ms(bwd, bwd_sets, 10),
+        _time_ms(lambda *t: ref.flash_attention_bwd_ref(*t, causal=False), bwd_sets[:2], 3),
+        _time_ms(sdpa_bwd, sdpa_sets, 10),
+        (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4, flops,
+        device_ms=_graph_ms(bwd, bwd_sets, 5), device_queued_ms=queued,
+        library_device_queued_ms=_queued_ms(sdpa_bwd, sdpa_sets, 10),
+        library_note="SDPA's backward alone", tflops=flops / (queued * 1e-3) / 1e12)
+    del sets, lib_sets, bwd_sets, sdpa_sets
+
+    # the cross-entropy forward at hubert-xlarge's untied 504-unit head
+    cfg = get_config(AUDIO_ARCH)
+    t, dm, vocab = bw * s, cfg.d_model, cfg.vocab_size
+    xs = [_xent_inputs(t, dm, vocab, bf16, "dense", 4, gen) for _ in range(4)]
+    kern = lambda x, w, lab: fused_xent(x, w, lab)   # noqa: E731
+    lib = lambda x, w, lab: F.cross_entropy(x @ w, lab, reduction="none")   # noqa: E731
+    row("fused_xent", AUDIO_ARCH, "src/repro_torch/kernels/csrc/fused_xent.cu",
+        "src/repro/kernels/fused_xent.py:85", f"T={t}, D={dm}, V={vocab}, untied, bf16",
+        _time_ms(kern, xs, 10), _time_ms(lambda x, w, lab: ref.fused_xent_ref(x, w, lab), xs, 3),
+        _time_ms(lib, xs, 10), (t * dm + vocab * dm) * elem + t * 8 + 2 * t * 4,
+        2 * t * dm * vocab, device_ms=_graph_ms(kern, xs, 5),
+        library_device_ms=_graph_ms(lib, xs, 5))
+    del xs
+
+    # flash-decode at the group-8 serving caches
+    w = PROMPT + GEN
+    nv = torch.full((BATCH,), w, dtype=torch.int32, device=DEVICE)
+    for arch in (VISION_ARCH, MOE_ARCH):
+        a = _attn(arch)
+        h, kh, d = a["h"], a["kh"], a["d"]
+        sets = [_decode_inputs(BATCH, w, h, kh, d, d, bf16, "dense", gen) for _ in range(8)]
+        kern = lambda q, k, v: decode_attention(q, k, v, nv)   # noqa: E731
+        lib_sets = [(q[:, :, None, :], k.transpose(1, 2).contiguous(),
+                     v.transpose(1, 2).contiguous()) for q, k, v in sets]
+        if not gqa:
+            lib_sets = [(q, k.repeat_interleave(h // kh, 1), v.repeat_interleave(h // kh, 1))
+                        for q, k, v in lib_sets]
+        sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+        row("decode_attention", arch, "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:55",
+            f"B={BATCH}, S={w}, H={h}, KH={kh}, D={d}, n_valid {w}, bf16",
+            _time_ms(kern, sets, 20),
+            _time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, nv), sets, 5),
+            _time_ms(sdpa, lib_sets, 20),
+            (2 * BATCH * h * d + 2 * BATCH * w * kh * d) * elem + 4 * BATCH,
+            2 * BATCH * h * w * (d + d), device_ms=_graph_ms(kern, sets, 20),
+            library_device_ms=_graph_ms(sdpa, lib_sets, 20))
+        del sets, lib_sets
+    torch.cuda.empty_cache()
+    print("front end and MoE kernel timings " + json.dumps(rows))
+    return rows
+
+
 TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_wide_kernel",
                                        "decode_f32_kernel", "decode_combine_kernel"),
                   "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
@@ -3565,7 +4245,9 @@ def _trace(fn, calls):
               if e.device_type() == torch.autograd.DeviceType.CUDA]
     ranges = sorted((t0_ns, t0_ns + d, name.removeprefix("roundpipe."))
                     for name, t0_ns, d in device if name.startswith("roundpipe."))
-    events = [e for e in device if not e[0].startswith("roundpipe.")]
+    # the cross-entropy's dense copy of an untied head, a named range too
+    head_rows = [d for name, _, d in device if name == "fused_xent.head_rows"]
+    events = [e for e in device if not e[0].startswith(("roundpipe.", "fused_xent."))]
     if not events:
         return "not measured: the trace holds no CUDA events"
     busy = sum(d for _, _, d in events) / 1e6
@@ -3581,6 +4263,9 @@ def _trace(fn, calls):
     out = {"wall_ms": wall * 1e3 / calls, "device_busy_ms": busy / calls,
            "busy_share": busy / (wall * 1e3), "device_events": len(events) / calls,
            "top_ms": {name[:60]: us / 1e3 / calls for name, us in top}}
+    if head_rows:
+        out["xent_head_rows_ms"] = sum(head_rows) / 1e6 / calls
+        out["xent_head_rows_calls"] = len(head_rows) / calls
     dequant = sum(us for name, us in by_name.items() if "dequant_kernel" in name)
     if dequant:
         out["dequant_ms"] = dequant / 1e3 / calls
@@ -3701,6 +4386,15 @@ def main() -> int:
     rows.append(phase_dequant_timings(errs, launches))
     rows += scan_rows
     rows += phase_wide_timings(errs, wide_launches)
+    family = {"frontend_serve": phase_frontend_serve(), "frontend_train": phase_frontend_train(),
+              "moe_serve": phase_moe_serve(), "moe_lora_train": phase_moe_lora_train()}
+    family_launches = {}                     # the instances: each arch's runs
+    for arch, run in ((VISION_ARCH, family["frontend_serve"]),
+                      (AUDIO_ARCH, family["frontend_train"]), (MOE_ARCH, family["moe_serve"]),
+                      (MOE_ARCH, family["moe_lora_train"])):
+        for name, n in run["launches"].items():
+            family_launches[f"{name}@{arch}"] = family_launches.get(f"{name}@{arch}", 0) + n
+    rows += phase_family_timings(errs, family_launches)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = sorted(out["step_s"][1:] + times)
     timings = {"train_run_step_ms": [x * 1e3 for x in out["step_s"]],
@@ -3728,6 +4422,7 @@ def main() -> int:
         {"chaos": chaos, "supervised_launcher": supervised, "rotation_traced_step": rotation,
          "dense_sync_one_round": {"traced_step": traced}}))
     print("wide timings " + json.dumps(wide))
+    print("front end and MoE timings " + json.dumps(family))
     print("phase seconds " + json.dumps(seconds))
     print("device GB held after each phase (as it ended, after gc.collect) "
           + json.dumps(held))

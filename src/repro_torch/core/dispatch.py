@@ -210,7 +210,11 @@ class _Step:
     (of that version), its batch cut by physical worker and round, and its
     accumulators, made at first use (on deep plans a step's first fused
     slot comes after the previous step's deposit-complete tick, so only one
-    step's accumulators ever live)."""
+    step's accumulators ever live). A batch of ``embeds`` (the stubbed
+    audio / vision front end) takes the place of the token lookup: it is
+    cut as tokens are and cast to the embedding table's dtype, and with no
+    tokens (``tok_w`` None) no embedding gradient is scattered, so the
+    returned one is zeros, as in the reference."""
 
     def __init__(self, rm: RingMachine, params, qpool, batch, *, cfg, n: int, r_total: int,
                  frozen: bool):
@@ -222,18 +226,23 @@ class _Step:
         if frozen:              # nothing of the base takes part in autograd
             head_w, fnorm = head_w.detach(), tree_map(torch.Tensor.detach, fnorm)
         self.head_w, self.fnorm = head_w, fnorm
-        tokens, labels = batch["tokens"], batch["labels"]
-        if tokens.shape[0] != r_total:
-            raise ValueError(f"batch of {tokens.shape[0]} rounds for a step of {r_total}")
-        if tokens.shape[1] % n:
-            raise ValueError(f"a round's batch of {tokens.shape[1]} does not divide over {n} "
+        feed = "embeds" if "embeds" in batch else "tokens"
+        inputs, labels = batch[feed], batch["labels"]
+        if inputs.shape[0] != r_total:
+            raise ValueError(f"batch of {inputs.shape[0]} rounds for a step of {r_total}")
+        if inputs.shape[1] % n:
+            raise ValueError(f"a round's batch of {inputs.shape[1]} does not divide over {n} "
                              "workers")
-        bw = tokens.shape[1] // n
-        self.tok_w = [[tokens[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
-        self.lab_w = [[labels[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
+        bw = inputs.shape[1] // n
+
+        def cut(x):
+            return [[x[r, w * bw:(w + 1) * bw] for r in range(r_total)] for w in range(n)]
+
+        in_w = cut(inputs)
+        self.tok_w = in_w if feed == "tokens" else None
+        self.lab_w = cut(labels)
         with torch.no_grad():
-            self.x_emb = [[T.embed_inputs(params, {"tokens": self.tok_w[w][r]}, cfg)
-                           for r in range(r_total)] for w in range(n)]
+            self.x_emb = [[T.embed_inputs(params, {feed: x}, cfg) for x in row] for row in in_w]
         self._params, self._frozen = params, frozen
         self._acc = None
 
@@ -377,7 +386,7 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
         A.tree_add_f32(acc["fnorm"], _unflatten(fn_l, grads[nb:-2]))
         A.add_f32(acc["head"], grads[-2])
         gx = grads[-1]
-        if sf == 0 and spec.layers:
+        if sf == 0 and spec.layers and st.tok_w is not None:
             A.token_add(acc["embed"], st.tok_w[w][ri], gx)
         A.add(acc["loss"], tot.detach())
         A.add(acc["tokens"], cnt)
@@ -392,7 +401,7 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
             grads = torch.autograd.grad(y, wrt, grad_outputs=grad_carry[w].to(y.dtype))
         gbuf[w] = gbuf_add(gbuf[w], _unflatten(blk_l, grads[:-1]))
         gx = grads[-1]
-        if spec.start == 0 and spec.size > 0:
+        if spec.start == 0 and spec.size > 0 and st.tok_w is not None:
             A.token_add(st.acc()["embed"], st.tok_w[w][ri], gx)
         grad_carry[w] = gx.float()
 
@@ -522,10 +531,11 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
 
     ``params['layers']`` is the pool as a list of per-layer dicts, padded
     to ``l_pad`` rows or not (only rows below ``n_layers`` are read).
-    ``batch`` holds the global ``tokens`` and ``labels``: (B,S) with
-    ``rounds=None``, where worker w's group is rows [w B/N, (w+1) B/N); or
-    round-major (R, B/R, S) with ``rounds=R``, where worker w's group of
-    round r is rows [w B/(RN), (w+1) B/(RN)) of ``batch[...][r]``.
+    ``batch`` holds the global ``tokens`` (or front-end ``embeds``, (B,S,D))
+    and ``labels``: (B,S) with ``rounds=None``, where worker w's group is
+    rows [w B/N, (w+1) B/N); or round-major (R, B/R, S) with ``rounds=R``,
+    where worker w's group of round r is rows [w B/(RN), (w+1) B/(RN)) of
+    ``batch[...][r]``.
     ``prefetch_program`` switches injection to the chunked double-buffered
     standby; ``pool_dtype`` streams the pool quantized; ``grad_compress``
     ("int8") runs every deposit through the error-feedback codec, with
@@ -541,8 +551,6 @@ def roundpipe_forward_backward(params, batch, grad_residual=None, *, cfg: ModelC
     if grad_compress != "none" and grad_residual is None:
         raise ValueError("grad_compress needs the grad_residual tree (init_roundpipe_state "
                          "puts it beside the optimizer state)")
-    if "embeds" in batch:
-        T.embed_inputs(params, batch, cfg)      # raises: the frontend is a later slice
     r_total = rounds or 1
     program = (_check_program(tick_program, plan, r_total, 1) if tick_program is not None
                else plan.tick_program(r_total, g0=g0))
@@ -596,8 +604,6 @@ def roundpipe_async_forward_backward(params, opt_state, batches, *, cfg: ModelCo
     synchronous driver (a supplied ``tick_program``'s stamp governs); the
     staleness-1 protocol is logical and so rotation-invariant."""
     _check_options(pool_dtype=pool_dtype, grad_compress=grad_compress)
-    if "embeds" in batches:
-        T.embed_inputs(params, batches, cfg)    # raises: the frontend is a later slice
     program = (_check_program(tick_program, plan, rounds, steps) if tick_program is not None
                else plan.tick_program(rounds, steps, g0=g0))
     del kv_chunk

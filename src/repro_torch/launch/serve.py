@@ -1,5 +1,9 @@
 """Serving launcher of the port: prefill a batch of prompts, then decode
-greedily with batched steps. Runs on the card unless ``--device cpu``.
+greedily with batched steps. Runs on the card unless ``--device cpu``. A
+front-end arch (``cfg.frontend``: internvl2-76b) prefills random bf16
+embeds from the seeded generator in place of prompt tokens, then decodes
+tokens, as the reference does; an encoder-only arch (hubert-xlarge) has no
+decode path and is refused.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --batch 4 --prompt-len 1024 --gen 32
@@ -16,9 +20,10 @@ import torch
 
 @dataclasses.dataclass
 class Served:
-    """What one run served: its inputs, the greedy tokens (B, gen), the
-    logits of the prefill and of every decode step, and host times in
-    seconds that end on a device synchronise."""
+    """What one run served: its inputs (prompt tokens (B, S), or (B, S, D)
+    embeds for a front-end arch), the greedy tokens (B, gen), the logits of
+    the prefill and of every decode step, and host times in seconds that end
+    on a device synchronise."""
     params: dict
     prompts: torch.Tensor
     tokens: torch.Tensor
@@ -67,14 +72,18 @@ def main(argv=None) -> Served:
 
     gen = torch.Generator(device=device).manual_seed(0)
     params = T.init_params(cfg, gen, device=device)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=device)
+    if cfg.frontend:
+        prompts = torch.randn((args.batch, args.prompt_len, cfg.d_model), generator=gen,
+                              device=device).to(torch.bfloat16)
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                generator=gen, device=device)
     prefill = build_prefill_step(cfg, max_len)
     decode = build_decode_step(cfg)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"embeds" if cfg.frontend else "tokens": prompts})
     _sync(device)
     t_prefill = time.perf_counter() - t0
     all_logits = [logits]

@@ -123,6 +123,20 @@ def _refusals(args, n_data: int) -> list[str]:
     return [name for name, hit in later.items() if hit]
 
 
+def _refuse_frontend(arch: str) -> None:
+    """A front-end arch trains from (B,S,D) embeds, and the launcher's
+    dataset makes token batches, as the reference launcher's does (which
+    feeds them to a ring step built for embeds batches, so it cannot train
+    such an arch either): refused by name."""
+    from repro_torch.models.config import get_config
+    frontend = get_config(arch).frontend
+    if frontend:
+        raise SystemExit(f"--arch {arch}: the {frontend} front-end arch trains from embeds "
+                         "batches, which the launcher's token dataset does not make; train it "
+                         "through core.dispatch.build_roundpipe_train_step with an embeds "
+                         "batch")
+
+
 class _NoCheckpoints:
     """The checkpoint manager of a run without ``--ckpt-dir``."""
 
@@ -152,6 +166,7 @@ def run_training(args) -> dict:
     if use_supervisor and not args.ckpt_dir:
         raise SystemExit("--elastic/--async-ckpt need --ckpt-dir: the supervisor restores "
                          "from and writes its checkpoints to a directory")
+    _refuse_frontend(args.arch)
     refused = _refusals(args, n_data)
     if refused:
         raise SystemExit("not ported yet (ROADMAP.md, Queue 1): " + ", ".join(refused)

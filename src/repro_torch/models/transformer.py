@@ -1,9 +1,13 @@
 """Decoder of the port: init, forward and loss, and serving with a cache.
 
 The PyTorch counterpart of ``repro/models/transformer.py`` for three of its
-block kinds: dense GQA attention, RWKV6 (``block_kind="rwkv6"``) and the
-hybrid of sliding-window attention in parallel with Mamba heads
-(``block_kind="hybrid"``). Parameters are plain dicts with the reference's
+block kinds: GQA attention, RWKV6 (``block_kind="rwkv6"``) and the hybrid of
+sliding-window attention in parallel with Mamba heads
+(``block_kind="hybrid"``), each with a dense or a Mixture-of-Experts MLP
+(``models/moe.py``; ``MOE_CHUNK_TOKENS`` bounds its dispatch buffers on long
+inputs). Inputs are tokens, or the ``embeds`` of a stubbed audio or vision
+front end ((B,S,D), cast to the embedding table's dtype; decode takes
+(B,) tokens or (B,1,D) embeds). Parameters are plain dicts with the reference's
 leaf names, scales and (in, out) weight layout; the reference's stacked layer
 axis becomes a list of per-layer dicts (``convert`` moves weights between the
 two). Serving keeps the reference's cache layout, its tensors stacked per
@@ -15,10 +19,11 @@ layer as (L, ...), and ``decode_step`` updates them in place:
 - hybrid: ``{"len", "k", "v", "ssm_h", "ssm_conv"}``, the attention ring of
   the sliding window plus (L, B, Di, N) fp32 and (L, B, CONV_W-1, Di).
 
-MoE, MLA and the ``embeds`` front end are later slices of the port
-(ROADMAP.md, Queue 1, item 13) and raise ``NotImplementedError``; training of
-the rwkv6 and hybrid families is refused by the launcher (their scans have no
-backward kernel yet).
+MLA is a later slice of the port (ROADMAP.md, Queue 1, item 13) and raises
+``NotImplementedError``; training of the rwkv6 and hybrid families is refused
+by the launcher (their scans have no backward kernel yet). The training
+launcher also refuses the front-end archs, which have no embeds dataset; the
+ring trains them from embeds batches through ``core.dispatch``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.kernels import ops
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, chunked_attention, decode_attention, init_mlp,
                      init_norm, init_normal, mlp)
+from .moe import init_moe, moe_block
 from .ssm import (init_mamba, init_rwkv6, mamba_seq, mamba_state_shape, mamba_step,
                   rwkv6_channel_seq, rwkv6_state_shape, rwkv6_time_seq)
 
@@ -39,14 +45,12 @@ _LATER = "is not ported yet (ROADMAP.md, Queue 1, item 13: non-dense families)"
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Raise by name for what the port does not run yet: MoE MLPs, MLA
-    attention and block kinds other than attn, rwkv6 and hybrid."""
+    """Raise by name for what the port does not run yet: MLA attention and
+    block kinds other than attn, rwkv6 and hybrid."""
     if cfg.block_kind not in ("attn", "rwkv6", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: block kind {cfg.block_kind!r} {_LATER}")
     if cfg.block_kind != "rwkv6" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: attention kind {cfg.attn_kind!r} {_LATER}")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE MLP {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +81,10 @@ def init_layer(generator, cfg: ModelConfig, dtype=torch.bfloat16, device="cuda")
                                 device)
         p["norm_attn_out"] = init_norm(cfg.d_model, "rmsnorm", dtype, device)
         p["norm_mamba_out"] = init_norm(cfg.d_model, "rmsnorm", dtype, device)
-    p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+    if cfg.is_moe:
+        p["moe"] = init_moe(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
     return p
 
 
@@ -120,6 +127,29 @@ def _attention_block(x, p, cfg: ModelConfig):
     return o.reshape(b, s, -1) @ p["w_o"], k, v
 
 
+MOE_CHUNK_TOKENS = 65_536
+
+
+def _mlp_block(x, p, cfg: ModelConfig):
+    """The layer's MLP, dense or MoE.  x: (B,S,D)."""
+    if not cfg.is_moe:
+        return mlp(x, p["mlp"], cfg.mlp_kind)
+    b, s, d = x.shape
+    t = b * s
+    flat = x.reshape(t, d)
+    if t <= MOE_CHUNK_TOKENS:
+        return moe_block(flat, p["moe"], cfg).reshape(b, s, d)
+    # long inputs: route and dispatch in token chunks so that the capacity
+    # buffers stay bounded (a capacity per chunk, as streaming MoE has it);
+    # the last chunk is padded with zero tokens, as the reference pads it
+    n_chunks = -(-t // MOE_CHUNK_TOKENS)
+    pad = n_chunks * MOE_CHUNK_TOKENS - t
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, d))])
+    out = torch.cat([moe_block(c, p["moe"], cfg) for c in flat.split(MOE_CHUNK_TOKENS)])
+    return out[:t].reshape(b, s, d)
+
+
 def _mix(a, m, p, cfg: ModelConfig):
     """The hybrid layer's merge of its attention and Mamba branches."""
     return 0.5 * (apply_norm(a, p["norm_attn_out"], "rmsnorm", cfg.norm_eps)
@@ -144,7 +174,7 @@ def _layer(x, p, cfg: ModelConfig):
         a = _mix(a, m, p, cfg)
     x = x + a
     h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
-    return x + mlp(h, p["mlp"], cfg.mlp_kind), entries
+    return x + _mlp_block(h, p, cfg), entries
 
 
 def layer_forward(x, p, cfg: ModelConfig):
@@ -158,15 +188,13 @@ def layer_forward(x, p, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params, batch, cfg: ModelConfig):
-    if "embeds" in batch:
-        raise NotImplementedError(
-            "the 'embeds' front end (audio / vision stubs) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 13)")
+    if "embeds" in batch:                      # audio / vlm stubbed frontend
+        return batch["embeds"].to(params["embed"].dtype)
     return params["embed"][batch["tokens"]]
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True, kv_chunk: int = 1024):
-    """Token inputs -> final hidden states (B,S,D).
+    """Token/embedding inputs -> final hidden states (B,S,D).
 
     Differentiable. With ``remat`` each layer runs under
     ``torch.utils.checkpoint`` (its activations are recomputed in the
@@ -202,7 +230,8 @@ def chunked_softmax_xent(x, w_head, labels, *, chunk: int = 512, ignore_index: i
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True, kv_chunk: int = 1024,
             xent_chunk: int = 512):
-    """Mean next-token cross-entropy over the tokens not labelled -100."""
+    """Mean next-token (or frame-classification) cross-entropy over the
+    positions not labelled -100."""
     x = forward(params, batch, cfg, remat=remat, kv_chunk=kv_chunk)
     tot, cnt = chunked_softmax_xent(x, lm_head_weights(params, cfg), batch["labels"],
                                     chunk=xent_chunk)
@@ -271,11 +300,14 @@ def _decode_attn_layer(x, p, cfg: ModelConfig, k_all, v_all, layer, pos, slot, n
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig):
-    """One decoding step.  tokens: (B,) int.  Returns (logits (B,V) fp32,
-    cache); the cache's tensors are updated in place and its ``len`` is one
-    more."""
+    """One decoding step.  tokens: (B,) int (or (B,1,D) embeds).  Returns
+    (logits (B,V) fp32, cache); the cache's tensors are updated in place and
+    its ``len`` is one more."""
     _require_ported(cfg)
-    x = params["embed"][tokens[:, None]]
+    if tokens.ndim == 1:
+        x = params["embed"][tokens[:, None]]
+    else:
+        x = tokens.to(params["embed"].dtype)
     pos = cache["len"]
     if cfg.block_kind == "rwkv6":
         st = cache["rwkv"]
@@ -308,7 +340,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
                 cache["ssm_conv"][layer].copy_(sc)
             x = x + a
             h = apply_norm(x, p["norm2"], cfg.norm_kind, cfg.norm_eps)
-            x = x + mlp(h, p["mlp"], cfg.mlp_kind)
+            x = x + _mlp_block(h, p, cfg)
     x = apply_norm(x, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     logits = (x[:, 0] @ lm_head_weights(params, cfg)).float()
     return logits, {**cache, "len": pos + 1}

@@ -138,15 +138,12 @@ def test_init_params_has_reference_leaves(dtype):
 
 
 def test_non_dense_families_raise():
-    """MoE and MLA are not ported yet; rwkv6 and hybrid are (test_torch_ssm.py)."""
+    """MLA is not ported yet; rwkv6 and hybrid are (test_torch_ssm.py), and
+    MoE and the embeds front end (test_torch_moe.py, test_torch_frontend.py)."""
     cfg = smoke_config(get_config(ARCH))
-    for other in (dataclasses.replace(cfg, n_experts=4, experts_per_token=2),
-                  dataclasses.replace(cfg, attn_kind="mla")):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-            T.init_params(other, torch.Generator(), device="cpu")
-    params = T.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="embeds"):
-        T.forward(params, {"embeds": torch.zeros(1, 4, cfg.d_model)}, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+        T.init_params(dataclasses.replace(cfg, attn_kind="mla"), torch.Generator(),
+                      device="cpu")
 
 
 # ---------------------------------------------------------------------------
