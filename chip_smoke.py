@@ -7,10 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, in order; any failure exits non-zero at once:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` (seven
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nine
      libraries: flash attention forward and backward, flash-decode, fused
      LM-head cross-entropy, dequant-on-upload, the RWKV6 scan and the Mamba
-     selective scan); print ptxas's register and spill report and each
+     selective scan, each scan's backward); print ptxas's register and spill report and each
      library's SASS opcode counts (``cuobjdump -sass``) and the flash
      backward's and the cross-entropy's spills, and fail unless the flash
      forward, the flash backward and the fused cross-entropy issue wgmma
@@ -49,7 +49,15 @@ Phases, in order; any failure exits non-zero at once:
      initial states, misaligned inputs) and the edges of the kernels'
      tiling (N in {1, 4, 17, 33, 64} at S = 1, a chunk - 1, a chunk + 1 and
      two chunks + 7, in fp32 and bf16; a single (batch, head) pair; d_inner
-     1, 31, 3201 and 32);
+     1, 31, 3201 and 32); ``rwkv_scan_bwd`` and ``ssm_scan_bwd`` against
+     their plain backwards (``ref.*_bwd_ref``) and against autograd of the
+     plain forwards, every gradient on the relative norm (fp32 1e-4, bf16
+     2e-2), at the training micro-batches of rwkv6-7b (B=2, S=1024, H=64,
+     N=64; fp32 and bf16) and hymba-1.5b (B=2, S=1536, Di=3200, N=16; bf16
+     with fp32 dy, and fp32) and over the forwards' edge sweep at the
+     backward's chunk of 32 (N in {1, 4, 17, 33, 64} at S = 1, 31, 33, 71;
+     d_inner 1, 31, 3201, 32; decays near 0 and 1; random initial states and
+     state gradients; misaligned inputs; one (batch, head));
   4. serve full-width qwen3-1.7b (bf16, random weights from a seeded
      ``torch.Generator`` on the card; batch 4, prompt 1024, 32 greedy tokens)
      through ``repro_torch.launch.serve.main`` with the kernels' launch counts
@@ -75,7 +83,18 @@ Phases, in order; any failure exits non-zero at once:
      traced decode step; each scan's time at its prefill and decode shapes
      beside its bound and its plain version, by events and, at prefill, by
      device time (a replayed CUDA graph); and flash and flash-decode at
-     hymba's shapes beside theirs;
+     hymba's shapes beside theirs. Between the two: train the recurrent
+     families through the launcher (``--mesh 1x4 --partition auto --batch
+     8``): hymba-1.5b at full depth (32 layers, ``--seq 1536``) and rwkv6-7b
+     at 8 of its 32 layers (``--seq 1024``), the counts of every training
+     kernel (both scans' forward and backward, flash for hymba, the
+     cross-entropy) set to 0 just before and held against the plan just
+     after, finite losses, then 3 steps of a fresh state on a repeated batch
+     (falling losses, a traced step), and each family's fp32 ring against
+     its single program at 4 (hymba) and 2 (rwkv) layers (loss rtol 1e-4,
+     worst relative 5e-3); and after the scans' rows, each backward at its
+     training micro-batch by events and graph replay beside its bound and
+     its plain backward;
   6. train full-width qwen3-1.7b through ``repro_torch.launch.train`` (bf16
      weights, fp32 master, ``--mesh 1x4 --partition auto --batch 8 --seq
      1024 --steps 3``) with the counts set to 0 just before and read just
@@ -688,8 +707,8 @@ def _compare_bwd(name, got, want, dtype) -> float:
 
 def flash_bwd_cases():
     """(label, B, S, H, KH, Dh, Dv, causal, window, dtype, layout): the
-    training shapes (one worker's group of the ring), the sweep of
-    tests/test_kernels.py, and the edges."""
+    training shapes (one worker's group of the ring; hymba-1.5b's windowed
+    group of 5 too), the sweep of tests/test_kernels.py, and the edges."""
     import torch
     from repro_torch.models.config import get_config
     cfg = get_config(ARCH)
@@ -721,6 +740,11 @@ def flash_bwd_cases():
                    None, dtype, "bshd")]
     cases.append((f"{MOE_ARCH}-bfloat16", bw, TRAIN_SEQ, g["h"], g["kh"], g["d"], g["d"], True,
                   None, bf16, "bshd"))
+    # hymba-1.5b's training shape: group 5, D 64, a window of 1024 inside S 1536
+    y = _hybrid_attn()
+    for dtype in (bf16, f32):
+        cases.append((f"{HYBRID_ARCH}-{dtype_name(dtype)}", bw, HYBRID_PROMPT, y["h"], y["kh"],
+                      y["d"], y["d"], True, y["window"], dtype, "bshd"))
     return cases + wide_bwd_cases()
 
 
@@ -793,7 +817,8 @@ def check_bwd_plans():
 def xent_cases():
     """(label, T, D, V, dtype, layout, ignored share): the training shapes
     with the tied (V,D) head, the sweep of tests/test_kernels.py with a
-    dense (D,V) head, and ragged T and V."""
+    dense (D,V) head, ragged T and V, and the untied heads of the front end,
+    the MoE family and the recurrent families."""
     import torch
     from repro_torch.models.config import get_config
     cfg = get_config(ARCH)
@@ -813,6 +838,14 @@ def xent_cases():
     cases += [(f"{AUDIO_ARCH}-bfloat16", t, audio.d_model, audio.vocab_size, bf16, "dense", 4),
               (f"{AUDIO_ARCH}-float32", t, audio.d_model, audio.vocab_size, f32, "dense", 4),
               (f"{MOE_ARCH}-bfloat16", t, moe.d_model, moe.vocab_size, bf16, "dense", 4)]
+    # the recurrent families' untied heads at one ring worker's tokens:
+    # hymba-1.5b's 32,001 (a ragged last vocabulary tile), rwkv6-7b's 65,536 x 4096
+    bw = TRAIN_BATCH // TRAIN_WORKERS
+    for arch, seq in ((HYBRID_ARCH, HYBRID_PROMPT), (RWKV_ARCH, RWKV_PROMPT)):
+        c = get_config(arch)
+        for dtype in (bf16, f32):
+            cases.append((f"{arch}-{dtype_name(dtype)}", bw * seq, c.d_model, c.vocab_size, dtype,
+                          "dense", 4))
     return cases
 
 
@@ -892,6 +925,11 @@ def phase_train_kernels():
     print("flash_attention_bwd vs plain, front end and MoE shapes, worst relative norm of dq, "
           "dk, dv: " + json.dumps({label: r for label, r in rels.items()
                                    if label.startswith(FAMILY_ARCHS)}))
+    recurrent = (HYBRID_ARCH, RWKV_ARCH)
+    print("kernels vs plain, the recurrent families' training shapes: " + json.dumps(
+        {f"{name}[{label}]": e for (name, label), e in errs.items()
+         if label.startswith(recurrent)}) + ", flash_attention_bwd worst relative norm: "
+          + json.dumps({label: r for label, r in rels.items() if label.startswith(recurrent)}))
     return _err_summary(errs, "training", wide=wide)
 
 
@@ -1237,34 +1275,65 @@ def _train_counters():
             "fused_xent": fused_xent}
 
 
-def phase_train(arch=ARCH):
+def _kernel_counters(cfg):
+    """The training kernels that ``cfg``'s ring launches, by name: the flash
+    forward and backward where its layers attend, a scan's forward and
+    backward where they recur, and the cross-entropy."""
+    from repro_torch.kernels.rwkv_scan import rwkv_scan, rwkv_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    out = _train_counters()
+    if cfg.block_kind == "rwkv6":
+        del out["flash_attention"], out["flash_attention_bwd"]
+        out.update(rwkv_scan=rwkv_scan, rwkv_scan_bwd=rwkv_scan_bwd)
+    elif cfg.block_kind == "hybrid":
+        out.update(ssm_scan=ssm_scan, ssm_scan_bwd=ssm_scan_bwd)
+    return out
+
+
+def _family_launches(cfg, plan, passes):
+    """``_ring_launches`` for ``cfg``'s kernels (``_kernel_counters``): a
+    scan's forward and backward run as often as the flash forward and
+    backward of an attention layer would."""
+    base = _ring_launches(plan, passes, False)
+    fwd, bwd = base["flash_attention"], base["flash_attention_bwd"]
+    out = {"fused_xent": base["fused_xent"]}
+    if cfg.block_kind == "rwkv6":
+        out.update(rwkv_scan=fwd, rwkv_scan_bwd=bwd)
+    else:
+        out.update(flash_attention=fwd, flash_attention_bwd=bwd)
+    if cfg.block_kind == "hybrid":
+        out.update(ssm_scan=fwd, ssm_scan_bwd=bwd)
+    return out
+
+
+def phase_train(arch=ARCH, seq=TRAIN_SEQ):
     import torch
     from repro_torch.launch import train
+    from repro_torch.models.config import get_config
 
-    counters = _train_counters()
+    cfg = get_config(arch)
+    counters = _kernel_counters(cfg)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     argv = ["--arch", arch, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
-            "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq", str(seq),
             "--steps", str(TRAIN_STEPS), "--log-every", "1", "--device", DEVICE]
     out = train.main(argv)
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     plan = out["plan"]
-    n, layers, f = TRAIN_WORKERS, plan.n_layers, plan.fused.size
-    want = {"flash_attention": TRAIN_STEPS * n * (2 * layers - f),
-            "flash_attention_bwd": TRAIN_STEPS * n * layers,
-            "fused_xent": TRAIN_STEPS * n}
-    print(f"train launches ({arch}): {launches} (the plan predicts {want}; L={layers}, fused "
-          f"body layers f={f}), peak memory {peak / 1e9:.2f} GB")
+    want = _family_launches(cfg, plan, TRAIN_STEPS)
+    print(f"train launches ({arch}): {launches} (the plan predicts {want}; L={plan.n_layers}, "
+          f"fused body layers f={plan.fused.size}), peak memory {peak / 1e9:.2f} GB")
     check(launches == want, f"training launches {launches} != the plan's {want}")
     check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
     return out, launches, peak
 
 
-def phase_repeated_batch(out, arch=ARCH):
+def phase_repeated_batch(out, arch=ARCH, seq=TRAIN_SEQ):
     """3 steps of a fresh state on one repeated batch: the loss falls. The
     middle step is traced. The learning rate is 1e-5, not the launcher's
     3e-4: Adam's first steps move every weight by about the learning rate
@@ -1281,15 +1350,15 @@ def phase_repeated_batch(out, arch=ARCH):
     del out["state"]
     torch.cuda.empty_cache()
     cfg = get_config(arch)
-    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
-                          xent_chunk=min(256, TRAIN_SEQ), partition=out["plan"],
+    step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, seq),
+                          xent_chunk=min(256, seq), partition=out["plan"],
                           opt=OptConfig(lr=1e-5))
-    step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, TRAIN_SEQ,
+    step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, seq,
                                          plan=out["plan"])
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     state = {"s": init_roundpipe_state(gen, cfg, step_cfg, n_workers=TRAIN_WORKERS,
                                        device=DEVICE)}
-    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=7))
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=7))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
     losses, times = [], []
 
@@ -1330,14 +1399,18 @@ def phase_ring_vs_single():
 def _plain_ops():
     """The kernel entries swapped for the plain versions, called directly."""
     from repro_torch.kernels import ops, ref
-    kept = {"flash_attention": ops.flash_attention, "fused_xent": ops.fused_xent}
+    kept = {name: getattr(ops, name)
+            for name in ("flash_attention", "fused_xent", "rwkv_scan", "ssm_scan")}
     ops.flash_attention = ref.flash_attention_ref
     ops.fused_xent = lambda x, w, lab, ignore_index=-100: ref.fused_xent_ref(
         x, w, lab, ignore_index=ignore_index)
+    ops.rwkv_scan = ref.rwkv_scan_ref
+    ops.ssm_scan = ref.ssm_scan_ref
     try:
         yield
     finally:
-        ops.flash_attention, ops.fused_xent = kept["flash_attention"], kept["fused_xent"]
+        for name, fn in kept.items():
+            setattr(ops, name, fn)
 
 
 def _leaf_names(tree, prefix=""):
@@ -1378,7 +1451,7 @@ def _ring_vs_single(dtype_label, arch=ARCH, n_layers=2):
     labels[:, ::5] = -100
     batch["labels"] = labels
     ring_fn = build_roundpipe_grads_fn(cfg, TRAIN_WORKERS, plan)
-    counters = _train_counters()
+    counters = _kernel_counters(cfg)
     before = {k: fn.launches for k, fn in counters.items()}
     grads, loss, _ = ring_fn(params, batch)
     ring = {k: fn.launches for k, fn in counters.items()}
@@ -1770,6 +1843,288 @@ def phase_scan_kernels():
         print(f"kernels vs plain: {name} {len(mine)} cases, prefill err {mine['prefill']:.3e}, "
               f"decode err {mine['decode']:.3e}, worst {max(mine.values()):.3e}")
     return _err_summary(errs, "prefill", extra=("decode",))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4a: the scans' backward kernels
+# ---------------------------------------------------------------------------
+
+SCAN_BWD_TRAIN = {"rwkv": (2, 1024, 64, 64), "ssm": (2, 1536, 3200, 16)}   # training micro-batch
+
+
+def _scan_bwd_compare(name, got, want, dtype) -> tuple[float, float]:
+    """The relative norm |got - want| / |want| within 1e-4 (fp32) or 2e-2
+    (bf16); a zero ``want`` asks for |got| within the same share of 1.
+    Returns (max abs err, relative norm)."""
+    import torch
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype_name(dtype)]
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item() if w.numel() else 0.0
+    rel = ((g - w).norm() / w.norm().clamp_min(1.0 if w.norm() == 0 else 1e-30)).item()
+    check(got.shape == want.shape and got.dtype == want.dtype and math.isfinite(rel)
+          and rel <= tol, f"{name}: relative error {rel:.3e} above {tol} ({got.dtype} "
+          f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})")
+    return err, rel
+
+
+def rwkv_bwd_cases():
+    """(label, B, S, H, N, dtype, decays, s0, layout): rwkv6-7b's training
+    micro-batch (fp32, as the model calls it, and bf16); then the forward's
+    edge sweep at the backward's chunk of 32: N in {1, 4, 17, 33, 64} at S =
+    1, 31, 33 and 71, decays near 1 (the model's), sigmoid and near 0 in
+    turn, random s0 and dS_T, both types; a misaligned layout; one (batch,
+    head)."""
+    import torch
+    from repro_torch.kernels.rwkv_scan import bwd_geometry
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, s, h, n = SCAN_BWD_TRAIN["rwkv"]
+    cases = [("train", b, s, h, n, f32, "model", "zeros", "dense"),
+             ("train-bf16", b, s, h, n, bf16, "model", "zeros", "dense")]
+    decays = ("model", "sigmoid", "near0")
+    for n_ in EDGE_N:
+        for i, s_ in enumerate(_edge_steps(bwd_geometry(n_)[1])):
+            for dtype in (f32, bf16):
+                cases.append((f"edge-n{n_}-s{s_}-{dtype_name(dtype)}", 2, s_, 3, n_, dtype,
+                              decays[i % 3], "random", "dense"))
+    for dtype in (f32, bf16):
+        cases.append((f"misaligned-{dtype_name(dtype)}", 2, 50, 3, 64, dtype, "sigmoid",
+                      "random", "misaligned"))
+        cases.append((f"single-bh-{dtype_name(dtype)}", 1, 71, 1, 64, dtype, "near0",
+                      "random", "dense"))
+    return cases
+
+
+def ssm_bwd_cases():
+    """(label, B, S, Di, N, dtype, h0, a, layout): hymba-1.5b's training
+    micro-batch (bf16 x, dt, B, C and fp32 dy, as the model calls it; and
+    fp32); then the forward's edge sweep at the backward's chunk of 32: N in
+    {1, 4, 17, 33, 64} at S = 1, 31, 33 and 71 with d_inner 1, 31, 3201 and 32
+    in turn, decays near 1, random and near 0 in turn, random h0 and dh_T,
+    both types; a misaligned layout."""
+    import torch
+    from repro_torch.kernels.ssm_scan import bwd_geometry
+    from repro_torch.models.config import get_config
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, s, di, n = SCAN_BWD_TRAIN["ssm"]
+    cfg = get_config(HYBRID_ARCH)
+    assert (di, n) == (cfg.d_inner, cfg.ssm_state)
+    cases = [("train", b, s, di, n, bf16, "zeros", "random", "dense"),
+             ("train-f32", b, s, di, n, f32, "zeros", "random", "dense")]
+    decays = ("near1", "random", "near0")
+    for n_ in EDGE_N:
+        for i, s_ in enumerate(_edge_steps(bwd_geometry(n_)[1])):
+            for dtype in (f32, bf16):
+                cases.append((f"edge-n{n_}-s{s_}-di{(1, 31, 3201, 32)[i]}-{dtype_name(dtype)}",
+                              2, s_, (1, 31, 3201, 32)[i], n_, dtype, "random", decays[i % 3],
+                              "dense"))
+    for dtype in (f32, bf16):
+        cases.append((f"misaligned-{dtype_name(dtype)}", 2, 70, 96, 16, dtype, "random",
+                      "random", "misaligned"))
+    return cases
+
+
+def _rwkv_bwd_inputs(b, s, h, n, dtype, decays, s0_kind, layout, gen):
+    """The forward's inputs (``near0``: w = exp(-exp(3 + 0.6 z)), most of them
+    0 in fp32), and dy in the inputs' type and a random fp32 dS_T."""
+    import torch
+    kind = "model" if decays == "near0" else decays
+    r, k, v, w, u, s0 = _rwkv_inputs(b, s, h, n, dtype, kind, s0_kind, layout, gen)
+    if decays == "near0":
+        z = torch.randn((b, s, h, n), generator=gen, device=DEVICE)
+        w = torch.exp(-torch.exp(3.0 + 0.6 * z)).to(dtype)
+        if layout == "misaligned":
+            w = _misaligned(w)
+    dy = _rand((b, s, h, n), dtype, gen)
+    if layout == "misaligned":
+        dy = _misaligned(dy)
+    ds_t = torch.randn((b, h, n, n), generator=gen, device=DEVICE)
+    return (r, k, v, w, u, s0), dy, ds_t
+
+
+def _ssm_bwd_inputs(b, s, di, n, dtype, h0_kind, decays, layout, gen):
+    """The forward's inputs with A scaled for decays near 1 (|A| ~ 1e-3),
+    random (|A| ~ 1) or near 0 (|A| ~ 50: e^(dt A) underflows), and an fp32 dy
+    and dh_T."""
+    import torch
+    x, dt, bm, cm, a, h0 = _ssm_inputs(b, s, di, n, dtype, h0_kind, layout, gen)
+    a = a * {"near1": 1e-3, "random": 1.0, "near0": 50.0}[decays]
+    dy = torch.randn((b, s, di), generator=gen, device=DEVICE)
+    dh_t = torch.randn((b, di, n), generator=gen, device=DEVICE)
+    return (x, dt, bm, cm, a, h0), dy, dh_t
+
+
+def _autograd_grads(fn, args, cotangents):
+    """The gradients of sum(out * cotangent) over ``fn``'s outputs with
+    respect to every argument, by autograd of ``fn`` (the plain forward)."""
+    import torch
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    with torch.enable_grad():
+        outs = fn(*leaves)
+        total = sum((o.float() * c.float()).sum() for o, c in zip(outs, cotangents))
+        return torch.autograd.grad(total, leaves)
+
+
+def phase_scan_bwd_kernels():
+    """``rwkv_scan_bwd`` and ``ssm_scan_bwd`` against their plain backwards
+    (``ref.*_bwd_ref``) and against autograd of the plain forwards, every
+    gradient by the relative norm: fp32 1e-4, bf16 2e-2."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    errs, rels = {}, {}
+    names = {"rwkv_scan_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
+             "ssm_scan_bwd": ("dx", "ddt", "dB", "dC", "da", "dh0")}
+    for kernel, cases, inputs, plain, fwd in (
+            ("rwkv_scan_bwd", rwkv_bwd_cases(), _rwkv_bwd_inputs, ref.rwkv_scan_bwd_ref,
+             ref.rwkv_scan_ref),
+            ("ssm_scan_bwd", ssm_bwd_cases(), _ssm_bwd_inputs, ref.ssm_scan_bwd_ref,
+             lambda *a: ref.ssm_scan_ref(*a, out_dtype=torch.float32))):
+        run = rwkv_scan_bwd if kernel == "rwkv_scan_bwd" else ssm_scan_bwd
+        for label, *shape in cases:
+            args, dy, d_state = inputs(*shape, gen)
+            dtype = args[0].dtype
+            got = run(*args, dy, d_state)
+            want = plain(*args, dy, d_state)
+            auto = _autograd_grads(fwd, args, (dy, d_state))
+            worst, worst_rel = 0.0, 0.0
+            for gname, g, w, a in zip(names[kernel], got, want, auto):
+                e, r = _scan_bwd_compare(f"{kernel}[{label}] {gname} vs plain", g, w, dtype)
+                _, ra = _scan_bwd_compare(f"{kernel}[{label}] {gname} vs autograd", g,
+                                          a.to(w.dtype), dtype)
+                worst, worst_rel = max(worst, e), max(worst_rel, r, ra)
+            errs[(kernel, label)] = worst
+            rels[(kernel, label)] = worst_rel
+            del args, dy, d_state, got, want, auto
+        torch.cuda.empty_cache()
+        mine = {label: e for (k, label), e in rels.items() if k == kernel}
+        f32 = {label: e for label, e in mine.items() if "bfloat16" not in label
+               and label not in ("train-bf16", "train")}
+        f32["train"] = mine["train"]
+        worst32 = max(f32, key=f32.get)
+        print(f"backward kernels vs plain and autograd: {kernel} {len(mine)} cases, training "
+              f"shape rel {mine['train']:.3e}, worst rel {max(mine.values()):.3e}, worst fp32 "
+              f"case {worst32} rel {f32[worst32]:.3e}")
+    return _err_summary(errs, "train")
+
+
+RWKV_TRAIN_LAYERS = 8   # rwkv6-7b's 32 layers cut to 8: ~2.3 B parameters, ~37 GB with AdamW
+RECURRENT_RING_LAYERS = {RWKV_ARCH: 2, HYBRID_ARCH: 4}   # depth of the fp32 ring checks
+
+
+def phase_recurrent_train():
+    """Train the recurrent families through the launcher (``--mesh 1x4
+    --partition auto --batch 8``, AdamW, one round, prefetch on):
+    hymba-1.5b at full depth (32 layers, ``--seq 1536``, past its window of
+    1024) and rwkv6-7b at ``RWKV_TRAIN_LAYERS`` of 32 (``--seq 1024``), the
+    counts of every training kernel (the scans' forward and backward, flash
+    for hymba's attention, the cross-entropy) set to 0 just before and held
+    against the plan just after; then 3 steps of a fresh state on a repeated
+    batch, the middle one traced (slot kinds, the scans' and attention's
+    device ms): finite losses that fall, step ms and peak memory; then each
+    family's fp32 ring against its single program (the plain versions) at
+    full width, rwkv6-7b at 2 layers and hymba-1.5b at 4: loss rtol 1e-4,
+    worst relative grad error 5e-3."""
+    import torch
+    out, launches = {}, {}
+    for arch, layers, seq in ((HYBRID_ARCH, None, HYBRID_PROMPT),
+                              (RWKV_ARCH, RWKV_TRAIN_LAYERS, RWKV_PROMPT)):
+        name = _cut_arch(arch, n_layers=layers) if layers else arch
+        run, run_launches, peak = phase_train(name, seq)
+        losses, times, traced = phase_repeated_batch(run, name, seq)
+        ring = _ring_vs_single("float32", arch, n_layers=RECURRENT_RING_LAYERS[arch])
+        check(ring["loss_rel"] <= 1e-4, f"{arch} ring loss disagrees with the single program")
+        check(ring["worst_rel"] < 5e-3, f"{arch} ring grads disagree with the single program")
+        warm = sorted(run["step_s"][1:] + times)
+        out[name] = {"launches": run_launches, "peak_memory_gb": peak / 1e9,
+                     "plan": run["plan"].describe(), "seq": seq,
+                     "train_run_step_ms": [x * 1e3 for x in run["step_s"]],
+                     "losses": run["losses"], "repeated_batch_losses": losses,
+                     "repeated_batch_step_ms": [x * 1e3 for x in times],
+                     "warm_step_ms_median": warm[len(warm) // 2] * 1e3,
+                     "warm_tok_per_s": TRAIN_BATCH * seq / warm[len(warm) // 2],
+                     "traced_step": traced,
+                     f"ring_vs_single_fp32_{RECURRENT_RING_LAYERS[arch]}_layers": ring}
+        for k, n in run_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"recurrent train ({name}) " + json.dumps(out[name]))
+    return out, launches
+
+
+def phase_scan_bwd_timings(errs, launches):
+    """Each backward kernel at the training micro-batch its family's ring
+    gives it (``SCAN_BWD_TRAIN``), cold inputs, by CUDA events and by a
+    replayed CUDA graph of the calls (device ms), beside its bound and its
+    plain backward. Bound: the inputs read once and the outputs written once
+    at the HBM rate (the checkpoints and partials are the kernel's own
+    traffic, not the function's), against the operations at the fp32 rate,
+    each exponential counted as one operation; no single PyTorch call
+    computes either backward."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import rwkv_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    rows = []
+    for name, run, plain, inputs, shape in (
+            ("rwkv_scan_bwd", rwkv_scan_bwd, ref.rwkv_scan_bwd_ref, _rwkv_bwd_inputs,
+             SCAN_BWD_TRAIN["rwkv"]),
+            ("ssm_scan_bwd", ssm_scan_bwd, ref.ssm_scan_bwd_ref, _ssm_bwd_inputs,
+             SCAN_BWD_TRAIN["ssm"])):
+        if name == "rwkv_scan_bwd":
+            b, s, h, n = shape
+            sets = [(*args, dy, None) for args, dy, _ in
+                    (_rwkv_bwd_inputs(b, s, h, n, torch.float32, "model", "zeros", "dense", gen)
+                     for _ in range(3))]
+            elems = b * s * h * n
+            # r, k, v, w, dy read and dr, dk, dv, dw written (fp32); u, du; s0, ds0
+            nbytes = 9 * elems * 4 + 2 * h * n * 4 + 2 * b * h * n * n * 4
+            # what the function needs, an FMA counted as 2: per (b, t, h, i, j)
+            # the forward state once more (2), G's update (2), G v for dk (2),
+            # G^T k for dv (2), rowsum(G S) for dw (2) and S dy for dr (2): 12
+            # N^2. The u terms are O(N) in the function's own formulas: per
+            # (b, t, h) v . dy (2 N), u k and u r (2 N), their products with
+            # v . dy into dr and dk (4 N), sum r u k (2 N) times dy into dv
+            # (2 N) and r k (v . dy) into du (2 N): 14 N. At the training
+            # micro-batch that is 6.4 GFLOP; the kernel's own bracket
+            # formulation does 16 N^2 (8.6 GFLOP), which the bound does not count.
+            flops = b * s * h * (12 * n * n + 14 * n)
+            label = f"B={b}, S={s}, H={h}, N={n}, fp32"
+        else:
+            b, s, di, n = shape
+            sets = [(*args, dy, None) for args, dy, _ in
+                    (_ssm_bwd_inputs(b, s, di, n, torch.bfloat16, "zeros", "random", "dense",
+                                     gen) for _ in range(3))]
+            # x, dx (bf16), dy (fp32); dt, B, C and their gradients (bf16); A,
+            # dA, h0, dh0 (fp32)
+            nbytes = (b * s * di * (2 + 2 + 4) + 2 * b * s * (1 + 2 * n) * 2 + 2 * di * n * 4
+                      + 2 * b * di * n * 4)
+            # per (b, t, d, n): the decay (an exponential and a product), h_t
+            # (2), g_t (2), dx's g B (2), dB's g dt x (1), dC's dy h (1), ddt's
+            # g (A e h + x B) (4), dA's g dt e h (3), g's carry (1): 18; per
+            # (b, t, d): dt x, dt * the dx sum
+            flops = b * s * di * (18 * n + 2)
+            label = f"B={b}, S={s}, Di={di}, N={n}, bf16 in, fp32 dy"
+        ms = _time_ms(run, sets, 5)
+        device_ms = _graph_ms(run, sets, 2)
+        plain_ms = _time_ms(plain, sets[:1], 1)
+        scan = ("_rwkv_recurrence, src/repro/models/ssm.py:147" if name == "rwkv_scan_bwd"
+                else "the lax.scan of _mamba_inner, src/repro/models/ssm.py:66")
+        row = _row(name, f"src/repro_torch/kernels/csrc/{name}.cu",
+                   f"none (the reference differentiates its jnp scan, {scan})",
+                   launches, errs, ms, plain_ms, None, nbytes, flops, "float32")
+        row.update({"shape": label, "device_ms": device_ms,
+                    "library_note": "none: no single PyTorch call computes this backward"})
+        rows.append(row)
+        del sets
+        torch.cuda.empty_cache()
+    print("scan backward timings " + json.dumps(rows))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4336,6 +4691,7 @@ def main() -> int:
     errs.update(phase_train_kernels())
     errs.update(phase_dequant_kernel())
     errs.update(phase_scan_kernels())
+    errs.update(phase_scan_bwd_kernels())
     served, launches = phase_serve()
     rows = phase_timings(served, errs, launches)
     del served
@@ -4344,7 +4700,11 @@ def main() -> int:
         run_launches, recurrent[arch] = phase_serve_recurrent(arch, prompt)
         for name, n in run_launches.items():
             launches[name] = launches.get(name, 0) + n
+    recurrent_train, run_launches = phase_recurrent_train()
+    for name, n in run_launches.items():
+        launches[name] = launches.get(name, 0) + n
     scan_rows = phase_scan_timings(errs, launches, recurrent)
+    scan_rows += phase_scan_bwd_timings(errs, launches)
     phase_hybrid_attention_timings(rows, errs)
     out, train_launches, peak = phase_train()
     losses, times, traced = phase_repeated_batch(out)
@@ -4423,6 +4783,7 @@ def main() -> int:
          "dense_sync_one_round": {"traced_step": traced}}))
     print("wide timings " + json.dumps(wide))
     print("front end and MoE timings " + json.dumps(family))
+    print("recurrent train timings " + json.dumps(recurrent_train))
     print("phase seconds " + json.dumps(seconds))
     print("device GB held after each phase (as it ended, after gc.collect) "
           + json.dumps(held))

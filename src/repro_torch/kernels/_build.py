@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "fused_xent",
-           "dequant", "rwkv_scan", "ssm_scan")
+           "dequant", "rwkv_scan", "rwkv_scan_bwd", "ssm_scan", "ssm_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

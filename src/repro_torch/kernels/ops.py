@@ -18,20 +18,16 @@ from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_kernel
 from .fused_xent import FusedXent
 from .fused_xent import fused_xent as _xent_kernel
+from .rwkv_scan import RwkvScan
 from .rwkv_scan import rwkv_scan as _rwkv_kernel
+from .rwkv_scan import rwkv_scan_bwd as _rwkv_bwd_kernel
+from .ssm_scan import SsmScan
 from .ssm_scan import ssm_scan as _ssm_kernel
+from .ssm_scan import ssm_scan_bwd as _ssm_bwd_kernel
 
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _refuse_backward(kernel: str, *tensors) -> None:
-    """The scan kernels are forward only, as in the reference: raise rather
-    than run one where autograd would need its backward."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(f"backward of {kernel} is not ported: ROADMAP.md (Queue 2); "
-                                  "on the card the scan runs under torch.no_grad() only")
 
 
 def flash_attention(q, k, v, *, causal=True, sliding_window=None, logit_scale=None):
@@ -79,11 +75,12 @@ def rwkv_scan(r, k, v, w, u, s0):
     """The RWKV6 recurrence.  r,k,v,w: (B,S,H,N); u: (H,N) fp32; s0:
     (B,H,N,N) fp32 -> (y (B,S,H,N) in r's dtype, S_T (B,H,N,N) fp32).
 
-    Differentiable on the CPU (autograd of the plain version); on the card
-    forward only, and it raises where autograd would need its backward."""
+    Differentiable: on the CPU through autograd of the plain version, on the
+    card through the forward and backward kernels (``RwkvScan``)."""
     if r.device.type == "cpu":
         return ref.rwkv_scan_ref(r, k, v, w, u, s0)
-    _refuse_backward("rwkv_scan", r, k, v, w, u, s0)
+    if _needs_grad(r, k, v, w, u, s0):
+        return RwkvScan.apply(r, k, v, w, u, s0, _rwkv_kernel, _rwkv_bwd_kernel)
     return _rwkv_kernel(r, k, v, w, u, s0)
 
 
@@ -92,9 +89,10 @@ def ssm_scan(x, dt, bmat, cmat, a, h0, *, out_dtype=None):
     (B,S,N); a: (Di,N) fp32; h0: (B,Di,N) fp32 -> (y (B,S,Di) in
     ``out_dtype``, x's dtype by default, h_T (B,Di,N) fp32).
 
-    Differentiable on the CPU (autograd of the plain version); on the card
-    forward only, and it raises where autograd would need its backward."""
+    Differentiable: on the CPU through autograd of the plain version, on the
+    card through the forward and backward kernels (``SsmScan``)."""
     if x.device.type == "cpu":
         return ref.ssm_scan_ref(x, dt, bmat, cmat, a, h0, out_dtype=out_dtype)
-    _refuse_backward("ssm_scan", x, dt, bmat, cmat, a, h0)
+    if _needs_grad(x, dt, bmat, cmat, a, h0):
+        return SsmScan.apply(x, dt, bmat, cmat, a, h0, out_dtype, _ssm_kernel, _ssm_bwd_kernel)
     return _ssm_kernel(x, dt, bmat, cmat, a, h0, out_dtype=out_dtype)

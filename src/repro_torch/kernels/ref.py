@@ -408,3 +408,231 @@ def ssm_scan_tiled_ref(x, dt, bmat, cmat, a, h0, *, lanes=4, out_dtype=None):
     h_t[..., order] = h
     return y.to(out_dtype or x.dtype), h_t[..., :n].contiguous()
 
+
+
+def rwkv_scan_bwd_ref(r, k, v, w, u, s0, dy, ds_t=None):
+    """The gradients of ``rwkv_scan_ref`` at output gradients dy (B,S,H,N)
+    and ds_t (B,H,N,N) fp32 (None counts as zero), by an explicit reverse
+    walk over time.  G_t, the whole adjoint of S_t, starts at ds_t and steps
+    back as G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ; at each step, with S_{t-1}
+    from a forward pass kept whole,
+      dr_t = S_{t-1} dy_t + u ⊙ k_t (v_t·dy_t),  dk_t = G_t v_t + u ⊙ r_t (v_t·dy_t),
+      dv_t = G_tᵀ k_t + dy_t Σᵢ rᵢuᵢkᵢ,  dw_t = rowsum(G_t ⊙ S_{t-1}),
+      du = Σ_{b,t} r_t ⊙ k_t (v_t·dy_t),  ds0 = G_0.
+    fp32 math. Returns (dr, dk, dv, dw) in r's dtype, du (H,N) and ds0
+    (B,H,N,N) fp32."""
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    s = s0.float()
+    prev = []
+    for t in range(r.shape[1]):
+        prev.append(s)
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = torch.zeros_like(s) if ds_t is None else ds_t.float().clone()
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, dyt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)                           # (B,H,1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", prev[t], dyt) + uf * kt * vdy
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + uf * rt * vdy
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", g, kt)
+                    + dyt * (rt * uf * kt).sum(-1, keepdim=True))
+        dw[:, t] = (g * prev[t]).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        g = wf[:, t, :, :, None] * g + rt[..., None] * dyt[:, :, None, :]
+    return (*(x.to(r.dtype) for x in (dr, dk, dv, dw)), du, g)
+
+
+def ssm_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_t=None):
+    """The gradients of ``ssm_scan_ref`` at output gradients dy (B,S,Di)
+    and dh_t (B,Di,N) fp32 (None counts as zero), by an explicit reverse
+    walk over time.  g_t, the whole adjoint of h_t, is dy_t C_t + e^{dt_{t+1}
+    a} ⊙ g_{t+1} (dh_t added at the last step); with h_{t-1} from a forward
+    pass kept whole and e_t = e^{dt_t a},
+      dx_t = dt_t Σₙ g_t B_t,  dB_t = Σ_d g_t dt_t x_t,  dC_t = Σ_d dy_t h_t,
+      ddt_t = Σ_{d,n} g_t (a e_t h_{t-1} + x_t B_t),
+      da = Σ_{b,t} g_t dt_t e_t h_{t-1},  dh0 = e_1 ⊙ g_1.
+    fp32 math. Returns (dx, ddt, dB, dC) in x's dtype, da (Di,N) and dh0
+    (B,Di,N) fp32."""
+    xf, dtf, bf, cf, dyf = (t.float() for t in (x, dt, bmat, cmat, dy))
+    af, h = a.float(), h0.float()
+    prev = []
+    for t in range(x.shape[1]):
+        prev.append(h)
+        h = (torch.exp(dtf[:, t, :, None] * af) * h
+             + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+    q = torch.zeros_like(h) if dh_t is None else dh_t.float().clone()
+    dx, dB, dC, ddt = (torch.zeros_like(t) for t in (xf, bf, cf, dtf))
+    da = torch.zeros_like(af)
+    for t in reversed(range(x.shape[1])):
+        hp, xt, dtt, bt = prev[t], xf[:, t], dtf[:, t], bf[:, t]
+        dec = torch.exp(dtt[:, :, None] * af)                            # (B,Di,N)
+        ht = dec * hp + (dtt * xt)[..., None] * bt[:, None, :]
+        g = dyf[:, t, :, None] * cf[:, t, None, :] + q
+        dx[:, t] = dtt * (g * bt[:, None, :]).sum(-1)
+        dB[:, t] = (g * (dtt * xt)[..., None]).sum(1)
+        dC[:, t] = (dyf[:, t, :, None] * ht).sum(1)
+        ddt[:, t, 0] = (g * (af * dec * hp + xt[..., None] * bt[:, None, :])).sum((1, 2))
+        da += (g * dtt[:, :, None] * dec * hp).sum(0)
+        q = dec * g
+    return (*(t.to(x.dtype) for t in (dx, ddt, dB, dC)), da, q)
+
+
+def rwkv_scan_bwd_tiled_ref(r, k, v, w, u, s0, dy, ds_t=None, *, chunk=32, sub=8,
+                            band_rows=16):
+    """``rwkv_scan_bwd_ref`` in the decomposition of ``csrc/rwkv_scan_bwd.cu``.
+
+    The state is padded to ``scan_width(n)`` and its rows are cut into bands
+    of ``band_rows`` rows (the kernel's blocks). Each band first replays the
+    forward from s0 and keeps its rows of S at every ``chunk`` boundary (the
+    checkpoints); then, chunk by chunk from the last, it replays the chunk
+    from its checkpoint, keeping S at every ``sub`` steps, and walks each
+    sub-chunk back from its own replay, with G_t + u ⊙ r_t dy_tᵀ as the one
+    bracket that dk (its row sums against v) and dv (its column sums against
+    k) share, and dr as the row sums of dy against S_{t-1} + u ⊙ k_t v_tᵀ.
+    Each band's column sums of dv are a partial, and the partials are added
+    band after band; du is summed within a (batch, head) over time and then
+    over the batch in order. fp32 math; returns what ``rwkv_scan_bwd_ref``
+    returns."""
+    b, s, h, n = r.shape
+    nt = scan_width(n)
+    pad = (0, nt - n)
+    rf, kf, vf, wf, dyf = (F.pad(t.float(), pad) for t in (r, k, v, w, dy))
+    wf[..., n:] = 1.0
+    uf = F.pad(u.float(), pad)
+    g_all = (torch.zeros((b, h, nt, nt), device=r.device) if ds_t is None
+             else F.pad(ds_t.float(), (0, nt - n, 0, nt - n)))
+    s_all = F.pad(s0.float(), (0, nt - n, 0, nt - n))
+    dr, dk, dw = (torch.zeros_like(rf) for _ in range(3))
+    dv_parts, du_parts, ds0 = [], torch.zeros((b, h, nt), device=r.device), []
+    chunks = -(-s // chunk)
+    for i0 in range(0, nt, band_rows):
+        rows = slice(i0, i0 + band_rows)
+        st = s_all[:, :, rows].clone()
+        ckpt = []
+        for c in range(chunks):
+            ckpt.append(st.clone())
+            for t in range(c * chunk, min(s, (c + 1) * chunk)):
+                st = wf[:, t, :, rows, None] * st + kf[:, t, :, rows, None] * vf[:, t, :, None, :]
+        g = g_all[:, :, rows].clone()
+        dv_part = torch.zeros_like(vf)
+        du_acc = torch.zeros((b, h, band_rows), device=r.device)
+        for c in reversed(range(chunks)):
+            t0 = c * chunk
+            st, subs = ckpt[c], []
+            for t in range(t0, min(s, t0 + chunk)):
+                if (t - t0) % sub == 0:
+                    subs.append(st)
+                st = wf[:, t, :, rows, None] * st + kf[:, t, :, rows, None] * vf[:, t, :, None, :]
+            for q in reversed(range(len(subs))):
+                st, prev = subs[q], []
+                steps = range(t0 + q * sub, min(s, t0 + (q + 1) * sub))
+                for t in steps:
+                    prev.append(st)
+                    st = (wf[:, t, :, rows, None] * st
+                          + kf[:, t, :, rows, None] * vf[:, t, :, None, :])
+                for t, sp in zip(reversed(steps), reversed(prev)):
+                    rt, kt, wt = rf[:, t, :, rows], kf[:, t, :, rows], wf[:, t, :, rows]
+                    ut, vt, dyt = uf[:, rows], vf[:, t], dyf[:, t]
+                    bracket = g + (ut * rt)[..., None] * dyt[:, :, None, :]
+                    dk[:, t, :, rows] = torch.einsum("bhij,bhj->bhi", bracket, vt)
+                    dv_part[:, t] = torch.einsum("bhij,bhi->bhj", bracket, kt)
+                    dw[:, t, :, rows] = (g * sp).sum(-1)
+                    dr[:, t, :, rows] = torch.einsum(
+                        "bhij,bhj->bhi", sp + (ut * kt)[..., None] * vt[:, :, None, :], dyt)
+                    du_acc += rt * kt * (vt * dyt).sum(-1, keepdim=True)
+                    g = wt[..., None] * g + rt[..., None] * dyt[:, :, None, :]
+        dv_parts.append(dv_part)
+        du_parts[:, :, rows] = du_acc
+        ds0.append(g)
+    dv = dv_parts[0]
+    for part in dv_parts[1:]:
+        dv = dv + part
+    du = torch.zeros((h, nt), device=r.device)
+    for bb in range(b):
+        du = du + du_parts[bb]
+    ds0 = torch.cat(ds0, dim=2)[:, :, :n, :n].contiguous()
+    return (*(t[..., :n].to(r.dtype) for t in (dr, dk, dv, dw)), du[:, :n].contiguous(), ds0)
+
+
+def ssm_scan_bwd_tiled_ref(x, dt, bmat, cmat, a, h0, dy, dh_t=None, *, chunk=32, sub=8,
+                           channels=32):
+    """``ssm_scan_bwd_ref`` in the decomposition of ``csrc/ssm_scan_bwd.cu``.
+
+    The state is padded to ``scan_width(n)``; the channels are cut into
+    blocks of ``channels`` (the kernel's blocks, the last one ragged). Each
+    block replays the forward from h0 and keeps h at every ``chunk``
+    boundary; then, chunk by chunk from the last, it replays the chunk from
+    its checkpoint, keeping h at every ``sub`` steps, and walks each
+    sub-chunk back from its own replay. The decay is 2^(dt (A log2 e)), as in
+    the forward kernel. dB, dC and ddt are the block's sums over its channels,
+    one partial per block, and the partials are added block after block; da
+    is summed over time within a batch row and then over the batch in order.
+    fp32 math; returns what ``ssm_scan_bwd_ref`` returns."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    nt = scan_width(n)
+    pad = (0, nt - n)
+    xf, dtf, dyf = x.float(), dt.float(), dy.float()
+    bf, cf = (F.pad(t.float(), pad) for t in (bmat, cmat))
+    af = F.pad(a.float(), pad)
+    a2 = af * 1.4426950408889634
+    h_all = F.pad(h0.float(), pad)
+    q_all = (torch.zeros_like(h_all) if dh_t is None else F.pad(dh_t.float(), pad))
+    dx = torch.zeros_like(xf)
+    parts, da_parts, dh0 = [], torch.zeros((bsz, di, nt), device=x.device), []
+    chunks = -(-s // chunk)
+    for d0 in range(0, di, channels):
+        ch = slice(d0, min(di, d0 + channels))
+
+        def step(h, t):
+            return (torch.exp2(dtf[:, t, :, None] * a2[ch]) * h
+                    + (dtf[:, t] * xf[:, t, ch])[..., None] * bf[:, t, None, :])
+
+        h = h_all[:, ch].clone()
+        ckpt = []
+        for c in range(chunks):
+            ckpt.append(h)
+            for t in range(c * chunk, min(s, (c + 1) * chunk)):
+                h = step(h, t)
+        q = q_all[:, ch].clone()
+        part = torch.zeros((bsz, s, 2 * nt + 1), device=x.device)
+        da_acc = torch.zeros_like(h)
+        for c in reversed(range(chunks)):
+            t0 = c * chunk
+            h, subs = ckpt[c], []
+            for t in range(t0, min(s, t0 + chunk)):
+                if (t - t0) % sub == 0:
+                    subs.append(h)
+                h = step(h, t)
+            for qq in reversed(range(len(subs))):
+                h, prev = subs[qq], []
+                steps = range(t0 + qq * sub, min(s, t0 + (qq + 1) * sub))
+                for t in steps:
+                    prev.append(h)
+                    h = step(h, t)
+                for t, hp in zip(reversed(steps), reversed(prev)):
+                    xt, dtt, bt = xf[:, t, ch], dtf[:, t], bf[:, t]
+                    dec = torch.exp2(dtt[:, :, None] * a2[ch])
+                    ht = dec * hp + (dtt * xt)[..., None] * bt[:, None, :]
+                    g = dyf[:, t, ch, None] * cf[:, t, None, :] + q
+                    dx[:, t, ch] = dtt * (g * bt[:, None, :]).sum(-1)
+                    part[:, t, :nt] = (g * (dtt * xt)[..., None]).sum(1)
+                    part[:, t, nt:2 * nt] = (dyf[:, t, ch, None] * ht).sum(1)
+                    part[:, t, 2 * nt] = (g * (af[ch] * dec * hp
+                                               + xt[..., None] * bt[:, None, :])).sum((1, 2))
+                    da_acc += g * dtt[:, :, None] * dec * hp
+                    q = dec * g
+        parts.append(part)
+        da_parts[:, ch] = da_acc
+        dh0.append(q)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    da = torch.zeros((di, nt), device=x.device)
+    for bb in range(bsz):
+        da = da + da_parts[bb]
+    dh0 = torch.cat(dh0, dim=1)[..., :n].contiguous()
+    return (dx.to(x.dtype), total[..., 2 * nt:].to(x.dtype), total[..., :n].to(x.dtype),
+            total[..., nt:nt + n].to(x.dtype), da[:, :n].contiguous(), dh0)

@@ -37,10 +37,10 @@ persistent straggler (``--straggler-factor``) rotates the ring, a dead
 worker re-plans the ring for the survivors and resumes from the newest
 checkpoint re-padded to the new pool depth, and ``--async-ckpt`` writes the
 checkpoints on a background thread; both drive the synchronous step, from
-flat batches. What the port does not run yet is refused by name: a data
-axis, ``gspmd`` and training of the rwkv6 and hybrid families (their scan
-kernels are forward only; ``launch.serve`` serves both). Runs on the card
-unless ``--device cpu``.
+flat batches. The recurrent families (rwkv6-7b, hymba-1.5b) train like the
+dense ones: their scans run through the forward and backward scan kernels
+on the card. What the port does not run yet is refused by name: a data axis
+and ``gspmd``. Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -113,10 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refusals(args, n_data: int) -> list[str]:
-    from repro_torch.models.config import get_config
     later = {
-        "training of the rwkv6/hybrid families (the scans' backward kernels)":
-            get_config(args.arch).block_kind in ("rwkv6", "hybrid"),
         "--strategy gspmd": args.strategy != "roundpipe",
         f"a data axis of {n_data} (--mesh)": n_data != 1,
     }

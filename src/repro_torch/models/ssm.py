@@ -5,10 +5,12 @@ The PyTorch counterpart of ``repro/models/ssm.py``, with the reference's
 parameter names, shapes, scales and state layouts. Each block has a
 full-sequence path (prefill: ``*_seq``) and a single-token path (decode:
 ``*_step``) over an explicit recurrent state. The reference runs both
-recurrences as jnp ``lax.scan``s; the port sends them through the kernel
-entries ``ops.ssm_scan`` and ``ops.rwkv_scan`` (hand-written CUDA kernels on
-the card, their plain versions on the CPU), which compute the same functions
-with the same argument layouts. Everything around them is plain PyTorch, as
+recurrences as jnp ``lax.scan``s and trains through their autodiff; the
+port sends them through the kernel entries ``ops.ssm_scan`` and
+``ops.rwkv_scan`` (hand-written CUDA kernels on the card, their plain
+versions on the CPU), which compute the same functions with the same
+argument layouts and are differentiable: on the card through each scan's
+forward and backward kernels. Everything around them is plain PyTorch, as
 the reference's is jnp, with the casts written out where JAX promotes types
 by itself.
 """

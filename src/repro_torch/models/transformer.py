@@ -20,10 +20,10 @@ layer as (L, ...), and ``decode_step`` updates them in place:
   the sliding window plus (L, B, Di, N) fp32 and (L, B, CONV_W-1, Di).
 
 MLA is a later slice of the port (ROADMAP.md, Queue 1, item 13) and raises
-``NotImplementedError``; training of the rwkv6 and hybrid families is refused
-by the launcher (their scans have no backward kernel yet). The training
-launcher also refuses the front-end archs, which have no embeds dataset; the
-ring trains them from embeds batches through ``core.dispatch``.
+``NotImplementedError``. Every other kind trains: the rwkv6 and hybrid
+families through the scans' forward and backward kernels on the card. The
+training launcher refuses the front-end archs, which have no embeds dataset;
+the ring trains them from embeds batches through ``core.dispatch``.
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ from repro.kernels.rwkv_scan import rwkv_scan as pallas_rwkv
 from repro.kernels.ssm_scan import ssm_scan as pallas_ssm
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv_scan import rwkv_scan as rwkv_kernel
+from repro_torch.kernels.rwkv_scan import rwkv_scan_bwd as rwkv_bwd_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd as ssm_bwd_kernel
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,25 +174,35 @@ def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
 
 
 def test_off_cpu_scans_refuse_gradients_by_name():
-    """Off the CPU the entries take the forward-only kernels: where autograd
-    would need a backward they raise by name, before any launch (meta
-    tensors stand in for the card's here); without gradients they go to the
-    kernel wrapper, which takes CUDA tensors only."""
+    """Off the CPU a scan whose inputs need gradients goes through its
+    autograd Function (``RwkvScan``, ``SsmScan``) to the forward and backward
+    kernels, with no fallback: with meta tensors standing in for the card's,
+    the Function's forward calls the kernel wrapper, which raises its ``CUDA
+    tensors`` error before any launch. Without gradients the entries call the
+    wrapper directly, outside any Function."""
     def meta(arrays):
         return [torch.empty(a.shape, device="meta") for a in arrays]
 
+    def through_function(info, module):
+        return any(e.name == "forward" and e.path.name == module for e in info.traceback)
+
     rwkv_args = meta(rwkv_inputs(12, 1, 4, 1, 16))
     ssm_args = meta(ssm_inputs(13, 1, 4, 8, 4))
-    before = (rwkv_kernel.launches, ssm_kernel.launches)
+    kernels = (rwkv_kernel, ssm_kernel, rwkv_bwd_kernel, ssm_bwd_kernel)
+    before = [k.launches for k in kernels]
     rwkv_args[1].requires_grad_()
     ssm_args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward of rwkv_scan is not ported"):
+    with pytest.raises(ValueError, match="CUDA tensors") as info:
         ops.rwkv_scan(*rwkv_args)
-    with pytest.raises(NotImplementedError, match="backward of ssm_scan is not ported"):
+    assert through_function(info, "rwkv_scan.py")
+    with pytest.raises(ValueError, match="CUDA tensors") as info:
         ops.ssm_scan(*ssm_args)
+    assert through_function(info, "ssm_scan.py")
     with torch.no_grad():
-        with pytest.raises(ValueError, match="CUDA tensors"):
+        with pytest.raises(ValueError, match="CUDA tensors") as info:
             ops.rwkv_scan(*rwkv_args)
-        with pytest.raises(ValueError, match="CUDA tensors"):
+        assert not through_function(info, "rwkv_scan.py")
+        with pytest.raises(ValueError, match="CUDA tensors") as info:
             ops.ssm_scan(*ssm_args)
-    assert (rwkv_kernel.launches, ssm_kernel.launches) == before
+        assert not through_function(info, "ssm_scan.py")
+    assert [k.launches for k in kernels] == before

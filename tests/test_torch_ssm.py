@@ -8,8 +8,9 @@ reference's, at rtol = atol = 1e-4 (the loss bar of the reference's own ring
 harness) in the logits and in every cache leaf, with equal greedy tokens.
 hymba's prompt (12) is longer than its smoke window (8), so the window cuts
 in prefill and decode wraps the attention ring. On the CPU the scans run
-their plain versions (the kernels run only on the card). The launchers serve
-both archs on the CPU and refuse to train them.
+their plain versions (the kernels run only on the card). The serving
+launcher serves both archs on the CPU; their training is
+``tests/test_torch_recurrent_train.py``'s.
 """
 import dataclasses
 
@@ -23,7 +24,7 @@ from repro.configs import smoke_config as j_smoke_config
 from repro.models import transformer as JT
 from repro.models.config import get_config as j_get_config
 from repro_torch.configs import smoke_config
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import transformer as T
 from repro_torch.models.config import get_config
@@ -197,13 +198,6 @@ def test_serve_smoke_on_cpu(arch, capsys):
     assert lines[1].startswith("decode: 3 steps in ")
     assert tuple(out.tokens.shape) == (2, 3)
     assert all(bool(torch.isfinite(lg).all()) for lg in out.logits)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_refuses_the_recurrent_families(arch):
-    with pytest.raises(SystemExit, match="training of the rwkv6/hybrid families"):
-        train.main(["--arch", arch, "--smoke", "--strategy", "roundpipe", "--mesh", "1x4",
-                    "--steps", "1", "--device", "cpu"])
 
 
 def test_moe_and_mla_still_raise_by_name():
