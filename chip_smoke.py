@@ -137,7 +137,8 @@ Phases, in order; any failure exits non-zero at once:
      program is);
  10. the chained staleness-1 optimizer, the host-resident optimizer and
      checkpoint restarts, at full width: the launcher with ``--async-opt
-     --async-steps 4 --steps 8`` at 28 layers, dense and ``--lora-rank 8``,
+     --async-steps 4 --steps 4`` (one chain) at 28 layers, dense and
+     ``--lora-rank 8``,
      and ``--async-steps 2 --steps 4 --microbatches 8 --pool-dtype int8
      --grad-compress int8``, each with the counts set to 0 just before and
      read just after and checked against the plan, the quantize passes
@@ -149,7 +150,7 @@ Phases, in order; any failure exits non-zero at once:
      layers, fp32 (loss rtol 1e-4, worst relative weight error 5e-3,
      separation from staleness-0) and bf16 (2e-2 on the relative norm, and
      no farther from fp32 than 1.25x the bf16 oracle); ``HostAsyncRoundPipe``
-     at 4 layers with the optimizer on the CPU (peak device memory, pinned
+     at 2 layers, 2 steps, with the optimizer on the CPU (peak device memory, pinned
      host bytes, step, device and optimizer seconds, the optimizer's hidden
      share),
      within 5e-3 of the serial oracle and bit-identical to it at 2 layers on
@@ -168,8 +169,8 @@ Phases, in order; any failure exits non-zero at once:
      ring's plan; the events, the replayed step-4 loss (rtol 1e-4), the
      goodput ledger and the final weights against an uninterrupted 4-worker
      run (5e-3 worst relative); the launcher with ``--elastic --ckpt-dir``,
-     without and with ``--async-ckpt`` (bf16, 4 steps, a checkpoint every
-     2), launches against the plan and both ledgers (checkpoint seconds the
+     without and with ``--async-ckpt`` (bf16, 1 step and its checkpoint),
+     launches against the plan and both ledgers (checkpoint seconds the
      step paid, the writer's snapshot and background-write seconds); and a
      one-round step at 28 layers traced at g0 = 0 and g0 = 1 in turns, with
      the plan's launches at both;
@@ -218,6 +219,7 @@ It exits non-zero without a result when no card is present.
 from __future__ import annotations
 
 import bisect
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -291,7 +293,9 @@ def phase_build():
     backward's and the cross-entropy's spills. Fails unless the flash forward,
     the flash backward and the fused cross-entropy issue wgmma (HGMMA) and
     TMA loads (UTMALDG), and flash-decode and the two scans 16-byte
-    asynchronous copies (LDGSTS or UTMALDG) with no local-memory spills."""
+    asynchronous copies (LDGSTS or UTMALDG) with no local-memory spills, and
+    unless every kernel of the scans' backwards keeps within 128 registers a
+    thread with no spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -301,8 +305,10 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     summary = {}
+    with concurrent.futures.ThreadPoolExecutor(len(_build.KERNELS)) as pool:   # cuobjdump at once
+        listings = dict(zip(_build.KERNELS, pool.map(_build.sass, _build.KERNELS)))
     for name in _build.KERNELS:
-        per_fn = _build.sass_opcodes(_build.sass(name))
+        per_fn = _build.sass_opcodes(listings[name])
         summary[name] = {op: sum(c.get(op, 0) for c in per_fn.values()) for op in SASS_OPS}
         spills = re.findall(r"(\d+) bytes spill stores", logs.get(name, ""))
         if spills:   # ptxas reports only on a fresh build
@@ -323,6 +329,17 @@ def phase_build():
         de = summary[name]
         check(de["LDGSTS"] + de["UTMALDG"] > 0 and de["LDL"] + de["STL"] == 0,
               f"{name}: no 16-byte asynchronous copy, or spills: {de}")
+    # the scans' backwards: every instance within 128 registers and no spills
+    for name in ("rwkv_scan_bwd", "ssm_scan_bwd"):
+        reports = _ptxas_by_function(logs.get(name, ""))
+        for fn, report in reports.items():
+            print(f"  {name} {fn}: {report}")
+        regs = [int(x) for r in reports.values() for x in re.findall(r"Used (\d+) registers", r)]
+        spill = [int(x) for r in reports.values() for x in re.findall(r"(\d+) bytes spill", r)]
+        check(max(regs, default=0) <= 128 and not any(spill)
+              and summary[name]["LDL"] + summary[name]["STL"] == 0,
+              f"{name}: above 128 registers or spills: {max(regs, default=0)} registers, "
+              f"spill bytes {spill}, SASS {summary[name]}")
     return summary
 
 
@@ -1892,6 +1909,16 @@ def rwkv_bwd_cases():
                       "random", "misaligned"))
         cases.append((f"single-bh-{dtype_name(dtype)}", 1, 71, 1, 64, dtype, "near0",
                       "random", "dense"))
+        chunk = bwd_geometry(64)[1]
+        # the chunks' edges: S below one chunk, exactly one, 129 chunks at one
+        # (batch, head), and a chunk whose decays are all exactly 0
+        for label, b_, s_, h_, kind in (("below-chunk", 2, chunk - 12, 3, "sigmoid"),
+                                        ("one-chunk", 2, chunk, 3, "model"),
+                                        ("many-chunks", 1, 128 * chunk + 1, 1, "model"),
+                                        ("zero-chunk", 2, 2 * chunk + 7, 3, "zero-chunk")):
+            if label != "many-chunks" or dtype == f32:   # 4097 plain steps: fp32 only
+                cases.append((f"{label}-{dtype_name(dtype)}", b_, s_, h_, 64, dtype, kind,
+                              "random", "dense"))
     return cases
 
 
@@ -1921,15 +1948,31 @@ def ssm_bwd_cases():
     for dtype in (f32, bf16):
         cases.append((f"misaligned-{dtype_name(dtype)}", 2, 70, 96, 16, dtype, "random",
                       "random", "misaligned"))
+        chunk = bwd_geometry(16)[1]
+        # the chunks' edges: S below one chunk, exactly one, 129 chunks at one
+        # batch row, and a chunk whose decays are all exactly 0
+        for label, b_, s_, di_, kind in (("below-chunk", 2, chunk - 12, 96, "random"),
+                                         ("one-chunk", 2, chunk, 96, "near1"),
+                                         ("many-chunks", 1, 128 * chunk + 1, 32, "random"),
+                                         ("zero-chunk", 2, 2 * chunk + 7, 96, "zero-chunk")):
+            if label != "many-chunks" or dtype == f32:   # 4097 plain steps: fp32 only
+                cases.append((f"{label}-{dtype_name(dtype)}", b_, s_, di_, 16, dtype,
+                              "random", kind, "dense"))
     return cases
 
 
 def _rwkv_bwd_inputs(b, s, h, n, dtype, decays, s0_kind, layout, gen):
     """The forward's inputs (``near0``: w = exp(-exp(3 + 0.6 z)), most of them
-    0 in fp32), and dy in the inputs' type and a random fp32 dS_T."""
+    0 in fp32; ``zero-chunk``: the model's decays, and w exactly 0 over the
+    second chunk of the backward), and dy in the inputs' type and a random
+    fp32 dS_T."""
     import torch
-    kind = "model" if decays == "near0" else decays
+    from repro_torch.kernels.rwkv_scan import bwd_geometry
+    kind = "model" if decays in ("near0", "zero-chunk") else decays
     r, k, v, w, u, s0 = _rwkv_inputs(b, s, h, n, dtype, kind, s0_kind, layout, gen)
+    if decays == "zero-chunk":
+        chunk = bwd_geometry(n)[1]
+        w[:, chunk:2 * chunk] = 0
     if decays == "near0":
         z = torch.randn((b, s, h, n), generator=gen, device=DEVICE)
         w = torch.exp(-torch.exp(3.0 + 0.6 * z)).to(dtype)
@@ -1944,11 +1987,16 @@ def _rwkv_bwd_inputs(b, s, h, n, dtype, decays, s0_kind, layout, gen):
 
 def _ssm_bwd_inputs(b, s, di, n, dtype, h0_kind, decays, layout, gen):
     """The forward's inputs with A scaled for decays near 1 (|A| ~ 1e-3),
-    random (|A| ~ 1) or near 0 (|A| ~ 50: e^(dt A) underflows), and an fp32 dy
-    and dh_T."""
+    random (|A| ~ 1) or near 0 (|A| ~ 50: e^(dt A) underflows); ``zero-chunk``:
+    random A, and dt = 1000 over the second chunk of the backward, where
+    every e^(dt A) is exactly 0 in fp32. An fp32 dy and dh_T."""
     import torch
+    from repro_torch.kernels.ssm_scan import bwd_geometry
     x, dt, bm, cm, a, h0 = _ssm_inputs(b, s, di, n, dtype, h0_kind, layout, gen)
-    a = a * {"near1": 1e-3, "random": 1.0, "near0": 50.0}[decays]
+    a = a * {"near1": 1e-3, "random": 1.0, "near0": 50.0, "zero-chunk": 1.0}[decays]
+    if decays == "zero-chunk":
+        chunk = bwd_geometry(n)[1]
+        dt[:, chunk:2 * chunk] = 1000.0
     dy = torch.randn((b, s, di), generator=gen, device=DEVICE)
     dh_t = torch.randn((b, di, n), generator=gen, device=DEVICE)
     return (x, dt, bm, cm, a, h0), dy, dh_t
@@ -1968,7 +2016,8 @@ def _autograd_grads(fn, args, cotangents):
 def phase_scan_bwd_kernels():
     """``rwkv_scan_bwd`` and ``ssm_scan_bwd`` against their plain backwards
     (``ref.*_bwd_ref``) and against autograd of the plain forwards, every
-    gradient by the relative norm: fp32 1e-4, bf16 2e-2."""
+    gradient by the relative norm: fp32 1e-4, bf16 2e-2; at the training
+    shapes also a second call, which must return the same bits."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv_scan import rwkv_scan_bwd
@@ -1987,6 +2036,11 @@ def phase_scan_bwd_kernels():
             args, dy, d_state = inputs(*shape, gen)
             dtype = args[0].dtype
             got = run(*args, dy, d_state)
+            if label.startswith("train"):   # no atomics: a second call repeats every bit
+                again = run(*args, dy, d_state)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{kernel}[{label}]: two calls on the same inputs differ")
+                del again
             want = plain(*args, dy, d_state)
             auto = _autograd_grads(fwd, args, (dy, d_state))
             worst, worst_rel = 0.0, 0.0
@@ -2091,8 +2145,9 @@ def phase_scan_bwd_timings(errs, launches):
             # (b, t, h) v . dy (2 N), u k and u r (2 N), their products with
             # v . dy into dr and dk (4 N), sum r u k (2 N) times dy into dv
             # (2 N) and r k (v . dy) into du (2 N): 14 N. At the training
-            # micro-batch that is 6.4 GFLOP; the kernel's own bracket
-            # formulation does 16 N^2 (8.6 GFLOP), which the bound does not count.
+            # micro-batch that is 6.6 GFLOP; the kernel also forms each chunk's
+            # L and M from zero (4 N^2) and replays each sub-chunk's states
+            # once more (2 N^2), which the bound does not count.
             flops = b * s * h * (12 * n * n + 14 * n)
             label = f"B={b}, S={s}, H={h}, N={n}, fp32"
         else:
@@ -2941,10 +2996,11 @@ def _lora_ring_vs_single(dtype_label, arch=ARCH, **extra):
 # and checkpoint restarts
 # ---------------------------------------------------------------------------
 
-ASYNC_K, ASYNC_STEPS = 4, 8                  # --async-steps and --steps of the chained runs
+ASYNC_K, ASYNC_STEPS = 4, 4                  # --async-steps and --steps: one chain (the
+                                             # repeated-batch calls cross chain boundaries)
 ASYNC_LR = "1e-4"
-HOST_LAYERS = 4                              # depth of the host-resident optimizer run
-HOST_STEPS = 3
+HOST_LAYERS = 2                              # depth of the host-resident optimizer run
+HOST_STEPS = 2
 HOST_EVENT_S = 30.0                          # the protocol's wait for one event (consistency.py)
 
 
@@ -3373,11 +3429,13 @@ def phase_resume():
 def phase_host_async():
     """``HostAsyncRoundPipe`` at full width: the ring's grads function on
     the card, the fp32 master and moments in pinned host memory and the
-    optimizer on the CPU, ``HOST_LAYERS`` layers, 3 steps of 8 x 1024
-    tokens. 4 layers, not 28: the CPU optimizer takes over 30 s a step at
-    28 layers on the 8 host cores of one H100 machine, and the protocol's wait for one
-    event (``EventBook.wait``, kept as the reference has it) is 30 s; and
-    4, not 8, keeps the whole script near half its time limit. The script
+    optimizer on the CPU, ``HOST_LAYERS`` layers, ``HOST_STEPS`` steps of 8
+    x 1024 tokens. 2 layers, not 28: the CPU optimizer takes over 30 s a
+    step at 28 layers on the 8 host cores of one H100 machine, and the
+    protocol's wait for one event (``EventBook.wait``, kept as the reference
+    has it) is 30 s; and 2 layers and 2 steps (the second step's update is
+    the first to run under device work) keep the whole script well inside
+    its time limit. The script
     prints the optimizer's seconds per parameter and what that makes at 28
     layers. Prints peak device memory, pinned host bytes, wall seconds a
     step, the device thread's and the CPU optimizer's seconds a step and the
@@ -3469,7 +3527,7 @@ CHAOS_LAYERS, CHAOS_BATCH, CHAOS_STEPS = 7, 12, 8   # 12 divides over M = 4 and 
 CHAOS_KILL_AT, CHAOS_SLOW_FROM, CHAOS_WORKERS = 5, 2, 4
 CHAOS_SAVE_EVERY = 4                         # checkpoints after steps 3 and 7
 CHAOS_LR = 1e-4
-SUPERVISED_STEPS, SUPERVISED_CKPT_EVERY = 4, 2
+SUPERVISED_STEPS, SUPERVISED_CKPT_EVERY = 1, 1   # one step and its checkpoint
 
 
 def run_chaos(cfg, *, seq, ckpt_dir, device, dtype, batch=CHAOS_BATCH, lr=CHAOS_LR,
@@ -3687,10 +3745,10 @@ def _seven_layer_arch():
 def phase_supervised_launcher():
     """The launcher under the supervisor, ``--elastic --ckpt-dir``, without
     and with ``--async-ckpt``: full width, 7 layers, bf16, 8 x 1024 tokens,
-    4 steps, a checkpoint every 2 (after steps 1 and 3, ~9.3 GB each). Each
-    run with the counts set to 0 just before and read just after, checked
-    against the plan; no supervisor event, finite losses, the newest
-    checkpoint at step 3. Prints both ledgers: the checkpoint seconds the
+    ``SUPERVISED_STEPS`` = 1 step and its checkpoint (~9.3 GB).
+    Each run with the counts set to 0 just before and read just after,
+    checked against the plan; no supervisor event, finite losses, the newest
+    checkpoint at the last step. Prints both ledgers: the checkpoint seconds the
     step paid (``ckpt_s``), the writer's snapshot and background-write
     seconds, and the checkpoint's bytes."""
     import shutil
@@ -4573,7 +4631,11 @@ TRACED_KERNELS = {"decode_attention": ("decode_mma_kernel", "decode_wide_kernel"
                   "flash_attention_bwd": ("flash_bwd_wgmma_kernel", "flash_bwd_wide_kernel",
                                           "bwd_f32_kernel", "bwd_dot_kernel", "cast_dq_kernel",
                                           "cast_f32_kernel"),
-                  "fused_xent": ("xent_wgmma_kernel", "xent_f32_kernel", "xent_combine_kernel")}
+                  "fused_xent": ("xent_wgmma_kernel", "xent_f32_kernel", "xent_combine_kernel"),
+                  "rwkv_scan_bwd": ("rwkv_bwd_local_kernel", "rwkv_bwd_carry_kernel",
+                                    "rwkv_bwd_walk_kernel", "rwkv_bwd_du_kernel"),
+                  "ssm_scan_bwd": ("ssm_bwd_local_kernel", "ssm_bwd_carry_kernel",
+                                   "ssm_bwd_walk_kernel", "ssm_bwd_combine_kernel")}
 
 
 def _trace(fn, calls):

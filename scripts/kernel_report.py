@@ -30,7 +30,11 @@ beside ``F.cross_entropy(x @ W^T, reduction="none")``. ``--scans`` times the
 two scans the same ways at the prefill and decode shapes of ``chip_smoke.py``:
 ``rwkv_scan`` at rwkv6-7b's (B=4, S=1024 or 1, H=64, N=64, fp32) and
 ``ssm_scan`` at hymba-1.5b's (B=4, S=1536 or 1, Di=3200, N=16, bf16 in, fp32
-y). ``--sweep`` also times the wide flash backward at gemma-2b's and
+y), and their backwards at the training micro-batches (``rwkv_scan_bwd`` at
+B=2, S=1024, H=64, N=64, fp32; ``ssm_scan_bwd`` at B=2, S=1536, Di=3200,
+N=16, bf16 in, fp32 dy): run it from a ``git archive`` of another commit
+(with this script copied into its ``scripts/``) and from this tree in one
+call to compare two commits' scans. ``--sweep`` also times the wide flash backward at gemma-2b's and
 nemotron-4-340b's training shapes with a group's query heads split over
 each count of items that divides the group.
 ``--attention`` times the three attention kernels at their Dh <= 128
@@ -165,22 +169,37 @@ def train_yardsticks():
 
 def scan_times():
     """Device ms per call of the two scans at the main path's prefill and
-    decode shapes (``chip_smoke.py``'s inputs, four sets, cold)."""
+    decode shapes, and of their backwards at the training micro-batches
+    (``chip_smoke.SCAN_BWD_TRAIN``, as ``phase_scan_bwd_timings`` calls them:
+    rwkv6-7b fp32 with dS_T absent, hymba-1.5b bf16 with an fp32 dy)
+    (``chip_smoke.py``'s inputs, cold sets)."""
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels.rwkv_scan import rwkv_scan
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.rwkv_scan import rwkv_scan, rwkv_scan_bwd
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
     gen = torch.Generator(device="cuda").manual_seed(14)
     out = {}
-    for kind, s in (("prefill", cs.RWKV_PROMPT), ("decode", 1)):
-        sets = [cs._rwkv_inputs(cs.BATCH, s, 64, 64, torch.float32, "model", "random", "dense",
-                                gen) for _ in range(4)]
-        out[f"rwkv_scan_{kind}"] = _device_times(rwkv_scan, sets)
-    for kind, s in (("prefill", cs.HYBRID_PROMPT), ("decode", 1)):
-        sets = [cs._ssm_inputs(cs.BATCH, s, 3200, 16, torch.bfloat16, "random", "dense", gen)
-                for _ in range(4)]
-        out[f"ssm_scan_{kind}"] = _device_times(
-            lambda *a: ssm_scan(*a, out_dtype=torch.float32), sets)
+    with torch.no_grad():
+        for kind, s in (("prefill", cs.RWKV_PROMPT), ("decode", 1)):
+            sets = [cs._rwkv_inputs(cs.BATCH, s, 64, 64, torch.float32, "model", "random",
+                                    "dense", gen) for _ in range(4)]
+            out[f"rwkv_scan_{kind}"] = _device_times(rwkv_scan, sets)
+        for kind, s in (("prefill", cs.HYBRID_PROMPT), ("decode", 1)):
+            sets = [cs._ssm_inputs(cs.BATCH, s, 3200, 16, torch.bfloat16, "random", "dense",
+                                   gen) for _ in range(4)]
+            out[f"ssm_scan_{kind}"] = _device_times(
+                lambda *a: ssm_scan(*a, out_dtype=torch.float32), sets)
+    b, s, h, n = cs.SCAN_BWD_TRAIN["rwkv"]
+    sets = [(*args, dy, None) for args, dy, _ in
+            (cs._rwkv_bwd_inputs(b, s, h, n, torch.float32, "model", "zeros", "dense", gen)
+             for _ in range(3))]
+    out["rwkv_scan_bwd_train"] = _device_times(rwkv_scan_bwd, sets)
+    del sets
+    b, s, di, n = cs.SCAN_BWD_TRAIN["ssm"]
+    sets = [(*args, dy, None) for args, dy, _ in
+            (cs._ssm_bwd_inputs(b, s, di, n, torch.bfloat16, "zeros", "random", "dense", gen)
+             for _ in range(3))]
+    out["ssm_scan_bwd_train"] = _device_times(ssm_scan_bwd, sets)
     print("scan times " + json.dumps(out))
 
 

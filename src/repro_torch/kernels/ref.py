@@ -479,160 +479,197 @@ def ssm_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_t=None):
     return (*(t.to(x.dtype) for t in (dx, ddt, dB, dC)), da, q)
 
 
-def rwkv_scan_bwd_tiled_ref(r, k, v, w, u, s0, dy, ds_t=None, *, chunk=32, sub=8,
-                            band_rows=16):
+def _chunked(t, chunks, chunk, fill):
+    """(B, S, ...) -> (B, chunks, chunk, ...), the steps past S filled with
+    ``fill`` (the neutral value the kernels stage there)."""
+    pad = chunks * chunk - t.shape[1]
+    if pad:
+        t = torch.cat([t, t.new_full((t.shape[0], pad, *t.shape[2:]), fill)], dim=1)
+    return t.reshape(t.shape[0], chunks, chunk, *t.shape[2:])
+
+
+def _carry(decay, local, start):
+    """The carry pass over chunks, in chunk order: ``local[:, c]`` is chunk c
+    crossed from zero and ``decay[:, c]`` its decay product, so the value
+    after chunk c is decay * (the value before it) + local. Returns the value
+    before each chunk (B, chunks, ...) and the value after the last."""
+    before = []
+    for c in range(local.shape[1]):
+        before.append(start)
+        start = decay[:, c] * start + local[:, c]
+    return torch.stack(before, dim=1), start
+
+
+def rwkv_scan_bwd_tiled_ref(r, k, v, w, u, s0, dy, ds_t=None, *, chunk=32):
     """``rwkv_scan_bwd_ref`` in the decomposition of ``csrc/rwkv_scan_bwd.cu``.
 
-    The state is padded to ``scan_width(n)`` and its rows are cut into bands
-    of ``band_rows`` rows (the kernel's blocks). Each band first replays the
-    forward from s0 and keeps its rows of S at every ``chunk`` boundary (the
-    checkpoints); then, chunk by chunk from the last, it replays the chunk
-    from its checkpoint, keeping S at every ``sub`` steps, and walks each
-    sub-chunk back from its own replay, with G_t + u ⊙ r_t dy_tᵀ as the one
-    bracket that dk (its row sums against v) and dv (its column sums against
-    k) share, and dr as the row sums of dy against S_{t-1} + u ⊙ k_t v_tᵀ.
-    Each band's column sums of dv are a partial, and the partials are added
-    band after band; du is summed within a (batch, head) over time and then
-    over the batch in order. fp32 math; returns what ``rwkv_scan_bwd_ref``
-    returns."""
+    The state is padded to ``scan_width(n)`` and time to whole chunks of
+    ``chunk`` steps (w = 1, the rest 0 past S). Three passes, as the kernel's
+    three launches:
+    - local, every (b, h, chunk) at once, as two sums over the chunk's steps:
+      L = Σ_t (a_t ⊙ k_t) v_tᵀ, the chunk run forward from a zero state, with
+      a_t = Π_{τ>t} w_τ, and M = Σ_t (b_t ⊙ r_t) dy_tᵀ, the adjoint walked back
+      over it from zero, with b_t = Π_{τ<t} w_τ; the rows' decay product P =
+      Π w_t (multiplied in step order) ends the prefix products;
+    - carry, in chunk order: the true state at each chunk's start from s0
+      (S <- P ⊙ S + L) and, from the last chunk back, the true adjoint at
+      each chunk's end from dS_T (G <- P ⊙ G + M), which ends as ds0;
+    - walk, every (b, h, chunk) at once: the chunk replayed from its true
+      start (dr = S_{t-1} dy_t on the way), then walked back from its true
+      end: dk = G_t v_t, dw = rowsum(G_t ⊙ S_{t-1}), dv = G_tᵀ k_t (the sum
+      over all N rows of the head, inside the block), and the u terms by
+      their O(N) formulas; du is one partial per (b, chunk), added in batch
+      order, then chunk order.
+    Nothing is divided: a decay of 0 makes P = 0. fp32 math; returns what
+    ``rwkv_scan_bwd_ref`` returns."""
     b, s, h, n = r.shape
     nt = scan_width(n)
-    pad = (0, nt - n)
-    rf, kf, vf, wf, dyf = (F.pad(t.float(), pad) for t in (r, k, v, w, dy))
-    wf[..., n:] = 1.0
-    uf = F.pad(u.float(), pad)
-    g_all = (torch.zeros((b, h, nt, nt), device=r.device) if ds_t is None
-             else F.pad(ds_t.float(), (0, nt - n, 0, nt - n)))
-    s_all = F.pad(s0.float(), (0, nt - n, 0, nt - n))
-    dr, dk, dw = (torch.zeros_like(rf) for _ in range(3))
-    dv_parts, du_parts, ds0 = [], torch.zeros((b, h, nt), device=r.device), []
     chunks = -(-s // chunk)
-    for i0 in range(0, nt, band_rows):
-        rows = slice(i0, i0 + band_rows)
-        st = s_all[:, :, rows].clone()
-        ckpt = []
-        for c in range(chunks):
-            ckpt.append(st.clone())
-            for t in range(c * chunk, min(s, (c + 1) * chunk)):
-                st = wf[:, t, :, rows, None] * st + kf[:, t, :, rows, None] * vf[:, t, :, None, :]
-        g = g_all[:, :, rows].clone()
-        dv_part = torch.zeros_like(vf)
-        du_acc = torch.zeros((b, h, band_rows), device=r.device)
-        for c in reversed(range(chunks)):
-            t0 = c * chunk
-            st, subs = ckpt[c], []
-            for t in range(t0, min(s, t0 + chunk)):
-                if (t - t0) % sub == 0:
-                    subs.append(st)
-                st = wf[:, t, :, rows, None] * st + kf[:, t, :, rows, None] * vf[:, t, :, None, :]
-            for q in reversed(range(len(subs))):
-                st, prev = subs[q], []
-                steps = range(t0 + q * sub, min(s, t0 + (q + 1) * sub))
-                for t in steps:
-                    prev.append(st)
-                    st = (wf[:, t, :, rows, None] * st
-                          + kf[:, t, :, rows, None] * vf[:, t, :, None, :])
-                for t, sp in zip(reversed(steps), reversed(prev)):
-                    rt, kt, wt = rf[:, t, :, rows], kf[:, t, :, rows], wf[:, t, :, rows]
-                    ut, vt, dyt = uf[:, rows], vf[:, t], dyf[:, t]
-                    bracket = g + (ut * rt)[..., None] * dyt[:, :, None, :]
-                    dk[:, t, :, rows] = torch.einsum("bhij,bhj->bhi", bracket, vt)
-                    dv_part[:, t] = torch.einsum("bhij,bhi->bhj", bracket, kt)
-                    dw[:, t, :, rows] = (g * sp).sum(-1)
-                    dr[:, t, :, rows] = torch.einsum(
-                        "bhij,bhj->bhi", sp + (ut * kt)[..., None] * vt[:, :, None, :], dyt)
-                    du_acc += rt * kt * (vt * dyt).sum(-1, keepdim=True)
-                    g = wt[..., None] * g + rt[..., None] * dyt[:, :, None, :]
-        dv_parts.append(dv_part)
-        du_parts[:, :, rows] = du_acc
-        ds0.append(g)
-    dv = dv_parts[0]
-    for part in dv_parts[1:]:
-        dv = dv + part
-    du = torch.zeros((h, nt), device=r.device)
+    pad = (0, nt - n)
+    rf, kf, vf, dyf = (_chunked(F.pad(t.float(), pad), chunks, chunk, 0.0)
+                       for t in (r, k, v, dy))
+    wf = F.pad(w.float(), pad, value=1.0)
+    wf = _chunked(wf, chunks, chunk, 1.0)                      # (B, C, T, H, nt)
+    uf = F.pad(u.float(), pad)
+    zero = vf.new_zeros((b, chunks, h, nt, nt))
+
+    def fwd(st, t):
+        return wf[:, :, t, :, :, None] * st + kf[:, :, t, :, :, None] * vf[:, :, t, :, None, :]
+
+    # local pass
+    pre, suf = [], [wf.new_ones((b, chunks, h, nt))]
+    decay = suf[0]
+    for t in range(chunk):
+        pre.append(decay)
+        decay = decay * wf[:, :, t]
+    for t in reversed(range(1, chunk)):
+        suf.insert(0, suf[0] * wf[:, :, t])
+    loc, adj = zero, zero
+    for t in range(chunk):
+        loc = loc + (suf[t] * kf[:, :, t])[..., None] * vf[:, :, t, :, None, :]
+        adj = adj + (pre[t] * rf[:, :, t])[..., None] * dyf[:, :, t, :, None, :]
+    # carry pass
+    s_pad = F.pad(s0.float(), (0, nt - n, 0, nt - n))
+    starts, _ = _carry(decay[..., None], loc, s_pad)
+    g_end = (torch.zeros_like(s_pad) if ds_t is None
+             else F.pad(ds_t.float(), (0, nt - n, 0, nt - n)))
+    ends, ds0 = _carry(decay.flip(1)[..., None], adj.flip(1), g_end)
+    ends = ends.flip(1)
+    # walk
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    prev, st = [], starts
+    for t in range(chunk):
+        prev.append(st)
+        dr[:, :, t] = torch.einsum("bchij,bchj->bchi", st, dyf[:, :, t])
+        st = fwd(st, t)
+    g = ends
+    vdy = (vf * dyf).sum(-1, keepdim=True)                    # (B, C, T, H, 1)
+    ruk = (rf * uf * kf).sum(-1, keepdim=True)
+    for t in reversed(range(chunk)):
+        dk[:, :, t] = torch.einsum("bchij,bchj->bchi", g, vf[:, :, t])
+        dw[:, :, t] = (g * prev[t]).sum(-1)
+        dv[:, :, t] = torch.einsum("bchij,bchi->bchj", g, kf[:, :, t])
+        g = wf[:, :, t, :, :, None] * g + rf[:, :, t, :, :, None] * dyf[:, :, t, :, None, :]
+    dr = dr + uf * kf * vdy
+    dk = dk + uf * rf * vdy
+    dv = dv + dyf * ruk
+    du_part = (rf * kf * vdy).sum(2)                          # (B, C, H, nt)
+    du = uf.new_zeros((h, nt))
     for bb in range(b):
-        du = du + du_parts[bb]
-    ds0 = torch.cat(ds0, dim=2)[:, :, :n, :n].contiguous()
-    return (*(t[..., :n].to(r.dtype) for t in (dr, dk, dv, dw)), du[:, :n].contiguous(), ds0)
+        for c in range(chunks):
+            du = du + du_part[bb, c]
+    out = (t.reshape(b, chunks * chunk, h, nt)[:, :s, :, :n].to(r.dtype)
+           for t in (dr, dk, dv, dw))
+    return (*out, du[:, :n].contiguous(), ds0[:, :, :n, :n].contiguous())
 
 
-def ssm_scan_bwd_tiled_ref(x, dt, bmat, cmat, a, h0, dy, dh_t=None, *, chunk=32, sub=8,
+def ssm_scan_bwd_tiled_ref(x, dt, bmat, cmat, a, h0, dy, dh_t=None, *, chunk=32,
                            channels=32):
     """``ssm_scan_bwd_ref`` in the decomposition of ``csrc/ssm_scan_bwd.cu``.
 
-    The state is padded to ``scan_width(n)``; the channels are cut into
-    blocks of ``channels`` (the kernel's blocks, the last one ragged). Each
-    block replays the forward from h0 and keeps h at every ``chunk``
-    boundary; then, chunk by chunk from the last, it replays the chunk from
-    its checkpoint, keeping h at every ``sub`` steps, and walks each
-    sub-chunk back from its own replay. The decay is 2^(dt (A log2 e)), as in
-    the forward kernel. dB, dC and ddt are the block's sums over its channels,
-    one partial per block, and the partials are added block after block; da
-    is summed over time within a batch row and then over the batch in order.
-    fp32 math; returns what ``ssm_scan_bwd_ref`` returns."""
+    The state is padded to ``scan_width(n)``, time to whole chunks of
+    ``chunk`` steps (dt = 0, so e = 1, and the rest 0 past S), and the
+    channels cut into blocks of ``channels`` (the last one ragged). Three
+    passes, as the kernel's three launches:
+    - local, every (b, channel block, chunk) at once, in one forward sweep:
+      h run from zero (L) with e_t = 2^(dt_t A log2 e), and the adjoint
+      walked back from zero, M = Σ_t E_t ⊙ dy_t C_t with E_t = Π_{τ≤t} e_τ
+      (a running product);
+    - carry, in chunk order: the chunk's decay P = 2^(A log2 e Σ dt_t) (one
+      exponential, dt summed in step order), the true state at each chunk's
+      start from h0 (h <- P ⊙ h + L) and, from the last chunk back, the true
+      adjoint after each chunk from dh_T (q <- P ⊙ q + M), which ends as dh0;
+    - walk, every (b, channel block, chunk) at once: the chunk replayed from
+      its true start, then walked back from its true end (e_t formed in each):
+      dx, and the block's sums over its channels of dB, dC and ddt (one
+      partial per block, added block after block; ddt as Σ A g e h plus
+      Σ_d x_d Σ_n g B), and dA's partial for the (b, chunk), added in batch
+      order, then chunk order.
+    Nothing is divided: an e_t that underflows makes P = 0. fp32 math;
+    returns what ``ssm_scan_bwd_ref`` returns."""
     bsz, s, di = x.shape
     n = a.shape[1]
     nt = scan_width(n)
+    chunks = -(-s // chunk)
     pad = (0, nt - n)
-    xf, dtf, dyf = x.float(), dt.float(), dy.float()
-    bf, cf = (F.pad(t.float(), pad) for t in (bmat, cmat))
+    xf, dyf = (_chunked(t.float(), chunks, chunk, 0.0) for t in (x, dy))
+    dtf = _chunked(dt.float(), chunks, chunk, 0.0)[..., 0]    # (B, C, T)
+    bf, cf = (_chunked(F.pad(t.float(), pad), chunks, chunk, 0.0) for t in (bmat, cmat))
     af = F.pad(a.float(), pad)
     a2 = af * 1.4426950408889634
-    h_all = F.pad(h0.float(), pad)
-    q_all = (torch.zeros_like(h_all) if dh_t is None else F.pad(dh_t.float(), pad))
+    dec = torch.exp2(dtf[..., None, None] * a2)               # (B, C, T, Di, nt)
+    inject = (dtf[..., None] * xf)[..., None] * bf[:, :, :, None, :]
+    zero = xf.new_zeros((bsz, chunks, di, nt))
+    # local pass
+    loc, adj, run = zero, zero, torch.ones_like(zero)
+    for t in range(chunk):
+        loc = dec[:, :, t] * loc + inject[:, :, t]
+        run = run * dec[:, :, t]
+        adj = adj + run * dyf[:, :, t, :, None] * cf[:, :, t, None, :]
+    # carry pass
+    dtsum = dtf.new_zeros((bsz, chunks))
+    for t in range(chunk):
+        dtsum = dtsum + dtf[:, :, t]
+    decay = torch.exp2(a2 * dtsum[..., None, None])           # (B, C, Di, nt)
+    starts, _ = _carry(decay, loc, F.pad(h0.float(), pad))
+    q_end = torch.zeros_like(zero[:, 0]) if dh_t is None else F.pad(dh_t.float(), pad)
+    ends, dh0 = _carry(decay.flip(1), adj.flip(1), q_end)
+    ends = ends.flip(1)
+    # walk
+    prev, h = [], starts
+    for t in range(chunk):
+        prev.append(h)
+        h = dec[:, :, t] * h + inject[:, :, t]
+    q = ends
     dx = torch.zeros_like(xf)
-    parts, da_parts, dh0 = [], torch.zeros((bsz, di, nt), device=x.device), []
-    chunks = -(-s // chunk)
+    dB, dC = (xf.new_zeros((bsz, chunks, chunk, di, nt)) for _ in range(2))
+    ddt = xf.new_zeros((bsz, chunks, chunk, di))
+    da_part = zero
+    for t in reversed(range(chunk)):
+        hp, et = prev[t], dec[:, :, t]
+        ht = et * hp + inject[:, :, t]
+        g = dyf[:, :, t, :, None] * cf[:, :, t, None, :] + q
+        dx[:, :, t] = dtf[:, :, t, None] * (g * bf[:, :, t, None, :]).sum(-1)
+        dB[:, :, t] = g * (dtf[:, :, t, None] * xf[:, :, t])[..., None]
+        dC[:, :, t] = dyf[:, :, t, :, None] * ht
+        ddt[:, :, t] = ((af * g * et * hp).sum(-1)
+                        + xf[:, :, t] * (g * bf[:, :, t, None, :]).sum(-1))
+        da_part = da_part + g * dtf[:, :, t, None, None] * et * hp
+        q = et * g
+    parts = []
     for d0 in range(0, di, channels):
         ch = slice(d0, min(di, d0 + channels))
-
-        def step(h, t):
-            return (torch.exp2(dtf[:, t, :, None] * a2[ch]) * h
-                    + (dtf[:, t] * xf[:, t, ch])[..., None] * bf[:, t, None, :])
-
-        h = h_all[:, ch].clone()
-        ckpt = []
-        for c in range(chunks):
-            ckpt.append(h)
-            for t in range(c * chunk, min(s, (c + 1) * chunk)):
-                h = step(h, t)
-        q = q_all[:, ch].clone()
-        part = torch.zeros((bsz, s, 2 * nt + 1), device=x.device)
-        da_acc = torch.zeros_like(h)
-        for c in reversed(range(chunks)):
-            t0 = c * chunk
-            h, subs = ckpt[c], []
-            for t in range(t0, min(s, t0 + chunk)):
-                if (t - t0) % sub == 0:
-                    subs.append(h)
-                h = step(h, t)
-            for qq in reversed(range(len(subs))):
-                h, prev = subs[qq], []
-                steps = range(t0 + qq * sub, min(s, t0 + (qq + 1) * sub))
-                for t in steps:
-                    prev.append(h)
-                    h = step(h, t)
-                for t, hp in zip(reversed(steps), reversed(prev)):
-                    xt, dtt, bt = xf[:, t, ch], dtf[:, t], bf[:, t]
-                    dec = torch.exp2(dtt[:, :, None] * a2[ch])
-                    ht = dec * hp + (dtt * xt)[..., None] * bt[:, None, :]
-                    g = dyf[:, t, ch, None] * cf[:, t, None, :] + q
-                    dx[:, t, ch] = dtt * (g * bt[:, None, :]).sum(-1)
-                    part[:, t, :nt] = (g * (dtt * xt)[..., None]).sum(1)
-                    part[:, t, nt:2 * nt] = (dyf[:, t, ch, None] * ht).sum(1)
-                    part[:, t, 2 * nt] = (g * (af[ch] * dec * hp
-                                               + xt[..., None] * bt[:, None, :])).sum((1, 2))
-                    da_acc += g * dtt[:, :, None] * dec * hp
-                    q = dec * g
-        parts.append(part)
-        da_parts[:, ch] = da_acc
-        dh0.append(q)
+        parts.append(torch.cat([dB[..., ch, :].sum(3), dC[..., ch, :].sum(3),
+                                ddt[..., ch].sum(3, keepdim=True)], dim=-1))
     total = parts[0]
     for part in parts[1:]:
         total = total + part
-    da = torch.zeros((di, nt), device=x.device)
+    total = total.reshape(bsz, chunks * chunk, 2 * nt + 1)[:, :s]
+    da = af.new_zeros((di, nt))
     for bb in range(bsz):
-        da = da + da_parts[bb]
-    dh0 = torch.cat(dh0, dim=1)[..., :n].contiguous()
+        for c in range(chunks):
+            da = da + da_part[bb, c]
+    dx = dx.reshape(bsz, chunks * chunk, di)[:, :s]
     return (dx.to(x.dtype), total[..., 2 * nt:].to(x.dtype), total[..., :n].to(x.dtype),
-            total[..., nt:nt + n].to(x.dtype), da[:, :n].contiguous(), dh0)
+            total[..., nt:nt + n].to(x.dtype), da[:, :n].contiguous(),
+            dh0[..., :n].contiguous())

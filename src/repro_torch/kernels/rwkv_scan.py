@@ -13,9 +13,11 @@ by the tensors' device.
 
 The backward is ``rwkv_scan_bwd``, the wrapper of ``csrc/rwkv_scan_bwd.cu``:
 a kernel with no Pallas counterpart (the reference differentiates its jnp
-scan), whose note says what bounds it and how it gets S_{t-1} and G_t at the
-same step without dividing by w (chunk checkpoints and replays, bands of rows,
-partials added in a fixed order: ``bwd_geometry``). Its plain versions are
+scan), whose note says what bounds it and how it runs the chunks of time in
+parallel without dividing by w: a local pass per chunk (its decay product,
+state and adjoint from zero), a carry pass across the chunks, and a walk
+from each chunk's true start and end, whose partials are added in a fixed
+order (``bwd_geometry``). Its plain versions are
 ``ref.rwkv_scan_bwd_ref`` and ``ref.rwkv_scan_bwd_tiled_ref``. ``RwkvScan``
 joins forward and backward for autograd.
 """
@@ -38,15 +40,13 @@ def geometry(n: int) -> tuple[int, int]:
     return ref.scan_width(n), 32
 
 
-def bwd_geometry(n: int) -> tuple[int, int, int]:
-    """(width, chunk, band rows) of the backward's launch for head size n: the
-    state width, the steps between checkpoints, and the rows of a block's band
-    (each thread keeps 8 columns of one row, 128 threads a block, 32 at width
-    16). The wrapper sizes the scratch from these and passes them on; the
-    kernel refuses any that are not its own."""
-    width = ref.scan_width(n)
-    lanes = width // 8
-    return width, 32, min(128, lanes * width) // lanes
+def bwd_geometry(n: int) -> tuple[int, int]:
+    """(width, chunk) of the backward's launches for head size n: the state
+    width and the steps of a chunk (the local and walk passes take one (batch,
+    head, chunk) a block, all N rows of the head; the carry pass crosses the
+    chunks). The wrapper sizes the scratch from these and passes them on; the
+    kernel refuses a chunk that is not its own."""
+    return ref.scan_width(n), 32
 
 
 @functools.cache
@@ -105,7 +105,7 @@ rwkv_scan.launches = 0
 @functools.cache
 def _bwd_entry():
     fn = _build.load("rwkv_scan_bwd").rwkv_scan_bwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -116,9 +116,9 @@ def rwkv_scan_bwd(r, k, v, w, u, s0, dy, ds_t=None):
     r's dtype, and ds_t (B,H,N,N) fp32 or None (zero) -> (dr, dk, dv, dw) in
     r's dtype, du (H,N) fp32, ds0 (B,H,N,N) fp32.
 
-    Launches the backward kernel and the pass that adds its partials on
-    PyTorch's current stream; raises for anything the kernel does not take
-    (CPU tensors included)."""
+    Launches the backward's local, carry and walk passes and the pass that
+    adds du's partials on PyTorch's current stream; raises for anything the
+    kernel does not take (CPU tensors included)."""
     _build.check_tensors("rwkv_scan_bwd", r, k, v, w, dy)
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, w, dy)):
         raise ValueError(f"rwkv_scan_bwd: r, k, v, w, dy must share one (B,S,H,N) shape, got "
@@ -126,8 +126,6 @@ def rwkv_scan_bwd(r, k, v, w, u, s0, dy, ds_t=None):
     b, s, h, n = r.shape
     if not 1 <= n <= N_MAX:
         raise ValueError(f"rwkv_scan_bwd: head size {n} outside 1..{N_MAX}")
-    if b * h > 2**31 - 1:
-        raise ValueError(f"rwkv_scan_bwd: {b * h} (batch, head) pairs exceed the grid")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
         if not t.is_contiguous():
             raise ValueError(f"rwkv_scan_bwd: {name} must be contiguous")
@@ -142,18 +140,22 @@ def rwkv_scan_bwd(r, k, v, w, u, s0, dy, ds_t=None):
         for t in (dr, dk, dv, dw, du):
             t.zero_()
         return dr, dk, dv, dw, du, ds0.zero_() if ds_t is None else ds0.copy_(ds_t)
-    width, chunk, band = bwd_geometry(n)
+    width, chunk = bwd_geometry(n)
+    chunks = -(-s // chunk)
+    if b * h * chunks > 2**31 - 1:
+        raise ValueError(f"rwkv_scan_bwd: {b * h * chunks} (batch, head, chunk) items exceed "
+                         f"the grid")
     f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty((b * h, -(-s // chunk), width, width), **f32)
-    dv_part = torch.empty((width // band, b, s, h, n), **f32)
-    du_part = torch.empty((b, h, n), **f32)
+    states = torch.empty((2, b * h, chunks, width, width), **f32)
+    decay = torch.empty((b * h, chunks, width), **f32)
+    du_part = torch.empty((b, chunks, h, n), **f32)
     with torch.cuda.device(r.device):   # launch on the tensors' card
         err = _bwd_entry()(_build.DTYPE_CODES[r.dtype], width, r.data_ptr(), k.data_ptr(),
                            v.data_ptr(), w.data_ptr(), u.data_ptr(), s0.data_ptr(),
                            dy.data_ptr(), None if ds_t is None else ds_t.data_ptr(),
-                           ckpt.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                           dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), dv_part.data_ptr(),
-                           du_part.data_ptr(), b, s, h, n, chunk, band,
+                           states.data_ptr(), decay.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+                           du_part.data_ptr(), b, s, h, n, chunk,
                            _build.stream_handle(r.device))
     if err:
         raise RuntimeError(f"rwkv_scan_bwd: kernel launch failed with CUDA error {err}")

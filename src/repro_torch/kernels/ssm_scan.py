@@ -16,9 +16,12 @@ between the kernel and the plain version by the tensors' device.
 
 The backward is ``ssm_scan_bwd``, the wrapper of ``csrc/ssm_scan_bwd.cu``: a
 kernel with no Pallas counterpart (the reference differentiates its jnp
-scan), whose note says what bounds it and how it gets h_{t-1} and g_t at the
-same step without dividing by the decay (chunk checkpoints and replays,
-blocks of channels, partials added in a fixed order: ``bwd_geometry``). Its
+scan), whose note says what bounds it and how it runs the chunks of time in
+parallel without dividing by the decay: a local pass per chunk (its state and
+adjoint from zero), a carry pass across the chunks (each chunk's decay as one
+exponential of its summed dt), and a walk from each chunk's true start and
+end, on blocks of channels whose partials are added in a fixed order
+(``bwd_geometry``). Its
 plain versions are ``ref.ssm_scan_bwd_ref`` and ``ref.ssm_scan_bwd_tiled_ref``.
 ``SsmScan`` joins forward and backward for autograd.
 """
@@ -44,13 +47,15 @@ def geometry(n: int) -> tuple[int, int]:
 
 
 def bwd_geometry(n: int) -> tuple[int, int, int]:
-    """(width, chunk, channels) of the backward's launch for state size n:
-    the state width, the steps between checkpoints, and the channels of a
-    block (width / 4 lanes a channel, 4 entries a lane, 128 threads a block).
+    """(width, chunk, channels) of the backward's launches for state size n:
+    the state width, the steps of a chunk (the local and walk passes take one
+    (batch, channel block, chunk) a block, the carry pass crosses the
+    chunks), and the channels of a block (256 threads, two state entries
+    each).
     The wrapper sizes the scratch from these and passes them on; the kernel
     refuses any that are not its own."""
     width = ref.scan_width(n)
-    return width, 32, 128 // (width // 4)
+    return width, 32, 512 // width
 
 
 @functools.cache
@@ -118,7 +123,7 @@ ssm_scan.launches = 0
 @functools.cache
 def _bwd_entry():
     fn = _build.load("ssm_scan_bwd").ssm_scan_bwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -130,9 +135,9 @@ def ssm_scan_bwd(x, dt, bmat, cmat, a, h0, dy, dh_t=None):
     (zero) -> (dx, ddt, dB, dC) in x's dtype, da (Di,N) fp32, dh0 (B,Di,N)
     fp32.
 
-    Launches the backward kernel and the pass that adds its partials on
-    PyTorch's current stream; raises for anything the kernel does not take
-    (CPU tensors included)."""
+    Launches the backward's local, carry and walk passes and the pass that
+    adds their partials on PyTorch's current stream; raises for anything the
+    kernel does not take (CPU tensors included)."""
     _build.check_tensors("ssm_scan_bwd", x, dt, bmat, cmat)
     if x.ndim != 3:
         raise ValueError(f"ssm_scan_bwd: x must be (B,S,Di), got {tuple(x.shape)}")
@@ -145,8 +150,6 @@ def ssm_scan_bwd(x, dt, bmat, cmat, a, h0, dy, dh_t=None):
                          f"dy {tuple(dy.shape)}")
     if not 1 <= n <= N_MAX:
         raise ValueError(f"ssm_scan_bwd: state size {n} outside 1..{N_MAX}")
-    if b > 65535:
-        raise ValueError(f"ssm_scan_bwd: batch {b}; the kernel's grid takes at most 65535")
     for name, t in (("x", x), ("dt", dt), ("B", bmat), ("C", cmat)):
         if not t.is_contiguous():
             raise ValueError(f"ssm_scan_bwd: {name} must be contiguous")
@@ -165,18 +168,22 @@ def ssm_scan_bwd(x, dt, bmat, cmat, a, h0, dy, dh_t=None):
             t.zero_()
         return dx, ddt, db, dc, da, dh0.zero_() if dh_t is None else dh0.copy_(dh_t)
     width, chunk, channels = bwd_geometry(n)
-    nblk = -(-di // channels)
+    nblk, chunks = -(-di // channels), -(-s // chunk)
+    if b * nblk * chunks > 2**31 - 1:
+        raise ValueError(f"ssm_scan_bwd: {b * nblk * chunks} (batch, block, chunk) items "
+                         f"exceed the grid")
     f32 = dict(dtype=torch.float32, device=x.device)
-    ckpt = torch.empty((b, -(-s // chunk), nblk * channels, width), **f32)
+    states = torch.empty((2, b, chunks, nblk * channels, width), **f32)
+    dtsum = torch.empty((b, chunks), **f32)
     part = torch.empty((nblk, b, s, 2 * n + 1), **f32)
-    da_part = torch.empty((b, di, n), **f32)
+    da_part = torch.empty((b, chunks, di, n), **f32)
     with torch.cuda.device(x.device):   # launch on the tensors' card
         err = _bwd_entry()(_build.DTYPE_CODES[x.dtype], width, x.data_ptr(), dt.data_ptr(),
                            bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(), h0.data_ptr(),
                            dy.data_ptr(), None if dh_t is None else dh_t.data_ptr(),
-                           ckpt.data_ptr(), dx.data_ptr(), ddt.data_ptr(), db.data_ptr(),
-                           dc.data_ptr(), da.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-                           da_part.data_ptr(), b, s, di, n, chunk, channels,
+                           states.data_ptr(), dtsum.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                           db.data_ptr(), dc.data_ptr(), da.data_ptr(), dh0.data_ptr(),
+                           part.data_ptr(), da_part.data_ptr(), b, s, di, n, chunk, channels,
                            _build.stream_handle(x.device))
     if err:
         raise RuntimeError(f"ssm_scan_bwd: kernel launch failed with CUDA error {err}")

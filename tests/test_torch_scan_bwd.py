@@ -8,14 +8,16 @@ with cotangents on y and on the final state, non-zero initial states, decays
 near 0 and near 1, and ragged N, S and d_inner; and against torch autograd of
 the port's plain forwards. Inputs come from numpy seeds; fp32, rtol = atol =
 1e-4. ``ref.*_bwd_tiled_ref`` (the
-kernels' chunk checkpoints, replays, bands of rows or blocks of channels and
-the order their partials are added in) against the plain backwards, at the
-wrappers' ``bwd_geometry`` and at others. ``RwkvScan`` and ``SsmScan`` run
+kernels' local, carry and walk passes over chunks, blocks of channels and the
+order their partials are added in) against the plain backwards, at the
+wrappers' ``bwd_geometry`` and at chunks of 4 and 8 steps. ``RwkvScan`` and ``SsmScan`` run
 with the plain callables: their gradients equal autograd of the plain
 forward, also when the final state's gradient never arrives. The backward
 wrappers take CUDA tensors only and count nothing else. The CUDA kernels
 themselves run only on the card (``chip_smoke.py``).
 """
+from unittest import mock
+
 import jax
 import numpy as np
 import pytest
@@ -31,7 +33,6 @@ from repro_torch.kernels.ssm_scan import bwd_geometry as ssm_geometry
 TOL = 1e-4
 RWKV_NAMES = ("r", "k", "v", "w", "u", "s0")
 SSM_NAMES = ("x", "dt", "B", "C", "a", "h0")
-KERNEL_SUB = 8    # the steps a backward kernel keeps in registers (kSub)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,6 +81,18 @@ def ssm_case(seed, b, s, di, n, decays):
     dy = rng.standard_normal((b, s, di)).astype(np.float32)
     dh_t = rng.standard_normal((b, di, n)).astype(np.float32)
     return (x, dt, bm, cm, a, h0), (dy, dh_t)
+
+
+def in_float64(fn, *args, **kwargs):
+    """``fn`` (a plain or tiled backward) with its math in float64: its
+    ``.float()`` casts made ``.double()``. The tiled backwards add in another
+    order than the plain walk (products over a chunk, sums over chunks), and
+    where the gradients reach ~1e3 (N = 64, decays near 1) fp32 rounding
+    alone, in either of them, is of the order of the elementwise tolerance;
+    in float64 the comparison holds the decomposition itself. The kernels'
+    fp32 arithmetic is held on the card (``chip_smoke.py``)."""
+    with mock.patch.object(torch.Tensor, "float", torch.Tensor.double):
+        return fn(*(None if a is None else a.double() for a in args), **kwargs)
 
 
 def torch_of(arrays):
@@ -142,54 +155,70 @@ def test_plain_backwards_take_a_missing_state_gradient_as_zero():
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("case,band", [((10, 2, 71, 2, 64, "near1"), None),
-                                       ((11, 2, 33, 3, 17, "near0"), None),
-                                       ((12, 1, 40, 2, 9, "sigmoid"), 4),
-                                       ((13, 2, 1, 2, 64, "sigmoid"), 8)])
-def test_rwkv_tiled_backward_matches_plain(case, band):
-    """The kernel's decomposition: bands of rows (the wrapper's geometry, or
-    another), checkpoints every 32 steps, replays every 8, the bands' dv and
-    the batch's du added in order."""
-    args, cots = rwkv_case(*case)
-    targs, tcots = torch_of(args), torch_of(cots)
-    _, chunk, rows = rwkv_geometry(case[4])
-    got = ref.rwkv_scan_bwd_tiled_ref(*targs, *tcots, chunk=chunk, sub=KERNEL_SUB,
-                                      band_rows=band or rows)
-    want = ref.rwkv_scan_bwd_ref(*targs, *tcots)
+# (case, chunk, dS_T given): the wrapper's chunk (None) on ragged N and S, a
+# single step and decays near 0; then chunks of 4 and 8 steps at S ~ 40, which
+# drive the carry pass across many chunks, with decays near 0 (a chunk's
+# product underflows to 0) and a final-state gradient that is None
+@pytest.mark.parametrize("case,chunk,with_state", [
+    ((10, 2, 71, 2, 64, "near1"), None, True), ((11, 2, 33, 3, 17, "near0"), None, True),
+    ((12, 1, 40, 2, 9, "sigmoid"), None, False), ((13, 2, 1, 2, 64, "sigmoid"), None, True),
+    ((22, 2, 41, 2, 6, "near0"), 4, True), ((23, 1, 39, 3, 20, "sigmoid"), 8, False),
+    ((24, 2, 40, 1, 5, "near1"), 8, True)])
+def test_rwkv_tiled_backward_matches_plain(case, chunk, with_state):
+    """The kernel's decomposition: per chunk the decay product, the local
+    state and adjoint from zero; the carry in chunk order from s0 and dS_T;
+    the walk from each chunk's true start and end (dv summed over the whole
+    head), du's partials added by batch row, then chunk."""
+    args, (dy, ds_t) = rwkv_case(*case)
+    targs = torch_of(args)
+    tcots = [torch.from_numpy(dy), torch.from_numpy(ds_t) if with_state else None]
+    got = in_float64(ref.rwkv_scan_bwd_tiled_ref, *targs, *tcots,
+                     chunk=chunk or rwkv_geometry(case[4])[1])
+    want = in_float64(ref.rwkv_scan_bwd_ref, *targs, *tcots)
     for name, g, w in zip(RWKV_NAMES, got, want):
         close(g, w, f"d{name}")
 
 
-@pytest.mark.parametrize("case,channels", [((14, 2, 71, 37, 16, "random"), None),
-                                           ((15, 2, 33, 9, 33, "near0"), None),
-                                           ((16, 1, 40, 20, 5, "near1"), 8),
-                                           ((17, 2, 1, 3, 64, "random"), None)])
-def test_ssm_tiled_backward_matches_plain(case, channels):
-    """The kernel's decomposition: blocks of channels (the wrapper's geometry,
-    the last one ragged, or another), checkpoints every 32 steps, replays
-    every 8, the blocks' dB, dC, ddt and the batch's dA added in order, the
-    decay as 2^(dt A log2 e)."""
-    args, cots = ssm_case(*case)
-    targs, tcots = torch_of(args), torch_of(cots)
-    _, chunk, per = ssm_geometry(case[4])
-    got = ref.ssm_scan_bwd_tiled_ref(*targs, *tcots, chunk=chunk, sub=KERNEL_SUB,
-                                     channels=channels or per)
-    want = ref.ssm_scan_bwd_ref(*targs, *tcots)
+@pytest.mark.parametrize("case,chunk,channels,with_state", [
+    ((14, 2, 71, 37, 16, "random"), None, None, True),
+    ((15, 2, 33, 9, 33, "near0"), None, None, True),
+    ((16, 1, 40, 20, 5, "near1"), None, 8, False),
+    ((17, 2, 1, 3, 64, "random"), None, None, True),
+    ((25, 2, 41, 7, 6, "near0"), 4, 3, True), ((26, 1, 39, 5, 17, "random"), 8, None, False),
+    ((27, 2, 40, 4, 3, "near1"), 8, 2, True)])
+def test_ssm_tiled_backward_matches_plain(case, chunk, channels, with_state):
+    """The kernel's decomposition: per chunk the local state and adjoint from
+    zero with e_t = 2^(dt A log2 e); the carry in chunk order with the
+    chunk's decay as one exponential of the summed dt; the walk from each
+    chunk's true start and end; the blocks' dB, dC, ddt (the wrapper's
+    channels a block, the last one ragged, or another) and dA's partials by
+    batch row, then chunk, added in order."""
+    args, (dy, dh_t) = ssm_case(*case)
+    targs = torch_of(args)
+    tcots = [torch.from_numpy(dy), torch.from_numpy(dh_t) if with_state else None]
+    _, wrapper_chunk, per = ssm_geometry(case[4])
+    got = in_float64(ref.ssm_scan_bwd_tiled_ref, *targs, *tcots, chunk=chunk or wrapper_chunk,
+                     channels=channels or per)
+    want = in_float64(ref.ssm_scan_bwd_ref, *targs, *tcots)
     for name, g, w in zip(SSM_NAMES, got, want):
         close(g, w, f"d{name}")
 
 
 def test_backward_geometry_at_the_training_shapes():
-    """rwkv6-7b's heads of 64: bands of 16 rows (4 a head), 128 threads of 8
-    columns; hymba-1.5b's state of 16: blocks of 32 channels, 100 a batch row
-    of 3200; checkpoints every 32 steps."""
-    assert rwkv_geometry(64) == (64, 32, 16)
-    assert rwkv_geometry(20) == (32, 32, 32)
-    assert rwkv_geometry(3) == (16, 32, 16)
+    """rwkv6-7b's heads of 64: the state at width 64, chunks of 32 steps (32
+    chunks of S = 1024, 4096 (b, h, chunk) items at B = 2, H = 64), each
+    block all 64 rows of a head;
+    hymba-1.5b's state of 16: blocks of 32 channels (two a thread), 100 a
+    batch row of 3200, chunks of 32 steps (48 of S = 1536)."""
+    assert rwkv_geometry(64) == (64, 32)
+    assert rwkv_geometry(20) == (32, 32)
+    assert rwkv_geometry(3) == (16, 32)
+    assert 2 * 64 * -(-1024 // rwkv_geometry(64)[1]) == 4096
     assert ssm_geometry(16) == (16, 32, 32)
     assert ssm_geometry(17) == (32, 32, 16)
     assert ssm_geometry(64) == (64, 32, 8)
     assert -(-3200 // ssm_geometry(16)[2]) == 100
+    assert -(-1536 // ssm_geometry(16)[1]) == 48
 
 
 @pytest.mark.parametrize("use_state", [True, False])
@@ -206,7 +235,7 @@ def test_rwkv_function_on_the_cpu_matches_autograd(use_state):
 
     leaves = [a.clone().requires_grad_() for a in targs]
     want = torch.autograd.grad(loss(ref.rwkv_scan_ref(*leaves)), leaves)
-    tiled = lambda *a: ref.rwkv_scan_bwd_tiled_ref(*a, band_rows=4)   # noqa: E731
+    tiled = lambda *a: ref.rwkv_scan_bwd_tiled_ref(*a, chunk=8)   # noqa: E731
     for bwd in (ref.rwkv_scan_bwd_ref, tiled):
         leaves = [a.clone().requires_grad_() for a in targs]
         outs = RwkvScan.apply(*leaves, ref.rwkv_scan_ref, bwd)
