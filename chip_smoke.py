@@ -239,7 +239,9 @@ WIDE_CASE_ARCHS = ("gemma-2b", "stablelm-12b", "nemotron-4-340b")   # 256, 160, 
 VISION_ARCH = "internvl2-76b"                # the embeds front end, served: group 8, D 128
 AUDIO_ARCH = "hubert-xlarge"                 # the embeds front end, trained: bidirectional, D 80
 MOE_ARCH = "gpt-oss-20b"                     # the MoE family: group 8, D 64, 32 experts top-4
-FAMILY_ARCHS = (VISION_ARCH, AUDIO_ARCH, MOE_ARCH)
+MLA_ARCH = "deepseek-v2-236b"                # MLA: 128 heads, q.k 192 (128 + 64 of RoPE), v 128
+FAMILY_ARCHS = (VISION_ARCH, AUDIO_ARCH, MOE_ARCH, MLA_ARCH)
+MOE_SERVE_CUTS = {"mixtral-8x7b": 8, "qwen3-235b": 4}   # served at 8 of 32 and 4 of 94 layers
 DEVICE = "cuda"
 BATCH, PROMPT, GEN = 4, 1024, 32
 TRAIN_WORKERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 1024, 3
@@ -416,7 +418,9 @@ def family_flash_cases():
     fp32: hubert-xlarge's training shape (one ring worker's B at S 1024, 16
     heads of 80, bidirectional: the padded-128 instance with ``causal=0``),
     also at a ragged S of 777; internvl2-76b's prefill (64 query heads over 8
-    kv heads of 128) and gpt-oss-20b's (64 over 8 of 64)."""
+    kv heads of 128) and gpt-oss-20b's (64 over 8 of 64); deepseek-v2-236b's
+    MLA prefill (128 heads, Dh 192 against Dv 128), mixtral-8x7b's (32 over
+    8 of 128) and qwen3-235b's (64 over 4 of 128)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     a = _attn(AUDIO_ARCH)
@@ -428,9 +432,9 @@ def family_flash_cases():
                    None, dtype, "bshd"),
                   (f"{AUDIO_ARCH}-s777-{n}", bw, 777, a["h"], a["kh"], a["d"], a["d"], False,
                    None, dtype, "bshd")]
-        for arch in (VISION_ARCH, MOE_ARCH):
+        for arch in (VISION_ARCH, MOE_ARCH, MLA_ARCH, *MOE_SERVE_CUTS):
             g = _attn(arch)
-            cases.append((f"{arch}-{n}", BATCH, PROMPT, g["h"], g["kh"], g["d"], g["d"], True,
+            cases.append((f"{arch}-{n}", BATCH, PROMPT, g["h"], g["kh"], g["dh"], g["dv"], True,
                           None, dtype, "bshd"))
     return cases
 
@@ -477,10 +481,16 @@ def wide_flash_cases():
 
 
 def _attn(arch):
-    """An arch's attention shapes: heads, kv heads and d_head."""
+    """An arch's attention shapes: heads, kv heads and d_head, and the head
+    dims the flash kernels see, Dh and Dv (under MLA every head has its own
+    key, of d_head + qk_rope_dim, and a value of v_head_dim)."""
     from repro_torch.models.config import get_config
     cfg = get_config(arch)
-    return {"h": cfg.n_heads, "kh": cfg.n_kv_heads, "d": cfg.d_head}
+    if cfg.attn_kind == "mla":
+        return {"h": cfg.n_heads, "kh": cfg.n_heads, "d": cfg.d_head,
+                "dh": cfg.d_head + cfg.qk_rope_dim, "dv": cfg.v_head_dim}
+    return {"h": cfg.n_heads, "kh": cfg.n_kv_heads, "d": cfg.d_head, "dh": cfg.d_head,
+            "dv": cfg.d_head}
 
 
 def _hybrid_attn():
@@ -533,8 +543,9 @@ def decode_cases():
     cases += [(f"unaligned-{dtype_name(dtype)}", 2, 300, 8, 2, 36, 20, [300, 7], dtype,
                "misaligned") for dtype in (f32, bf16)]
     cases += wide_decode_cases()
-    # the group-8 serving caches of internvl2-76b (D 128) and gpt-oss-20b (D 64)
-    for arch in (VISION_ARCH, MOE_ARCH):
+    # the group-8 serving caches of internvl2-76b (D 128) and gpt-oss-20b (D
+    # 64), mixtral-8x7b's group of 4 and qwen3-235b's of 16 (D 128)
+    for arch in (VISION_ARCH, MOE_ARCH, *MOE_SERVE_CUTS):
         g = _attn(arch)
         for dtype in (bf16, f32):
             cases.append((f"{arch}-{dtype_name(dtype)}", BATCH, s_srv, g["h"], g["kh"], g["d"],
@@ -668,9 +679,9 @@ def phase_kernels():
 
 def _print_family_errs(errs):
     """The max abs errors of the front end's and the MoE family's cases."""
-    print("kernels vs plain, front end and MoE shapes: " + json.dumps(
+    print("kernels vs plain, front end, MoE and MLA shapes: " + json.dumps(
         {f"{name}[{label}]": e for (name, label), e in errs.items()
-         if label.startswith(FAMILY_ARCHS)}))
+         if label.startswith(FAMILY_ARCHS + tuple(MOE_SERVE_CUTS))}))
 
 
 def _err_summary(errs, main, extra=(), wide=()):
@@ -757,6 +768,11 @@ def flash_bwd_cases():
                    None, dtype, "bshd")]
     cases.append((f"{MOE_ARCH}-bfloat16", bw, TRAIN_SEQ, g["h"], g["kh"], g["d"], g["d"], True,
                   None, bf16, "bshd"))
+    # deepseek-v2-236b's LoRA ring: MLA's 128 heads, Dh 192 against Dv 128
+    m = _attn(MLA_ARCH)
+    for dtype in (bf16, f32):
+        cases.append((f"{MLA_ARCH}-{dtype_name(dtype)}", bw, TRAIN_SEQ, m["h"], m["kh"], m["dh"],
+                      m["dv"], True, None, dtype, "bshd"))
     # hymba-1.5b's training shape: group 5, D 64, a window of 1024 inside S 1536
     y = _hybrid_attn()
     for dtype in (bf16, f32):
@@ -851,10 +867,13 @@ def xent_cases():
               ("ragged-d-bf16", 70, 100, 4097, bf16, "dense", 5)]
     # hubert-xlarge's untied 504-unit head (two vocabulary tiles, the second
     # 248 columns into its 256) and gpt-oss-20b's untied head
-    audio, moe = get_config(AUDIO_ARCH), get_config(MOE_ARCH)
+    audio, moe, mla = get_config(AUDIO_ARCH), get_config(MOE_ARCH), get_config(MLA_ARCH)
     cases += [(f"{AUDIO_ARCH}-bfloat16", t, audio.d_model, audio.vocab_size, bf16, "dense", 4),
               (f"{AUDIO_ARCH}-float32", t, audio.d_model, audio.vocab_size, f32, "dense", 4),
-              (f"{MOE_ARCH}-bfloat16", t, moe.d_model, moe.vocab_size, bf16, "dense", 4)]
+              (f"{MOE_ARCH}-bfloat16", t, moe.d_model, moe.vocab_size, bf16, "dense", 4),
+              # deepseek-v2-236b's untied head: D 5120, V 102,400
+              (f"{MLA_ARCH}-bfloat16", t, mla.d_model, mla.vocab_size, bf16, "dense", 4),
+              (f"{MLA_ARCH}-float32", t, mla.d_model, mla.vocab_size, f32, "dense", 4)]
     # the recurrent families' untied heads at one ring worker's tokens:
     # hymba-1.5b's 32,001 (a ragged last vocabulary tile), rwkv6-7b's 65,536 x 4096
     bw = TRAIN_BATCH // TRAIN_WORKERS
@@ -893,6 +912,7 @@ def phase_train_kernels():
         kw = dict(causal=causal, sliding_window=window)
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        _compare(f"flash_attention[{label}] out", o, o_ref, dtype)
         _compare(f"flash_attention[{label}] lse", lse, lse_ref, torch.float32)
         do = _rand(o.shape, dtype, gen)
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -957,7 +977,8 @@ def phase_train_kernels():
 def _serve_launcher(arch):
     """``serve.main`` for ``arch`` (``BATCH`` x ``PROMPT``, ``GEN`` greedy
     tokens), the attention kernels' counts set to 0 just before and read
-    just after: flash once a layer, flash-decode once a layer a step; finite
+    just after: flash once a layer, flash-decode once a layer a step (none
+    under MLA, whose decode attends in the compressed space); finite
     logits. Returns (served, launches), with the run's peak memory."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
@@ -977,9 +998,9 @@ def _serve_launcher(arch):
     served.peak_memory_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"main path launches ({arch}): {launches}, peak memory "
           f"{served.peak_memory_gb:.2f} GB")
-    check(launches == {"flash_attention": cfg.n_layers,
-                       "decode_attention": cfg.n_layers * GEN},
-          f"{arch}: launches {launches}, not {cfg.n_layers} and {cfg.n_layers * GEN}")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": 0 if cfg.attn_kind == "mla" else cfg.n_layers * GEN}
+    check(launches == want, f"{arch}: launches {launches}, not {want}")
     check(all(bool(torch.isfinite(lg).all()) for lg in served.logits),
           f"{arch}: non-finite logits")
     check(tuple(served.tokens.shape) == (BATCH, GEN), f"tokens {tuple(served.tokens.shape)}")
@@ -4349,6 +4370,26 @@ def phase_frontend_train():
     return out
 
 
+def _traced_serving(cfg, served):
+    """A traced prefill of ``served``'s prompts and 4 traced greedy decode
+    steps after it (``_trace``)."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    prefill = build_prefill_step(cfg, PROMPT + GEN)
+    decode = build_decode_step(cfg)
+    batch = {"tokens": served.prompts}
+    out = {"traced_prefill": _trace(lambda: prefill(served.params, batch), 1)}
+    logits, cache = prefill(served.params, batch)
+    state = {"tok": logits.argmax(-1), "cache": cache}
+    del logits, cache
+
+    def step():
+        lg, state["cache"] = decode(served.params, state["cache"], state["tok"])
+        state["tok"] = lg.argmax(-1)
+
+    out["traced_decode_step"] = _trace(step, 4)
+    return out
+
+
 def phase_moe_serve():
     """gpt-oss-20b at full width and depth (24 layers, 32 experts top-4,
     ~41.8 GB of bf16 weights) through ``serve.main``: ``BATCH`` x ``PROMPT``
@@ -4362,27 +4403,14 @@ def phase_moe_serve():
     ``GEN`` steps after a ``PROMPT``-token prompt (``_bf16_vs_truth``), fp32
     over 4 steps after 256 tokens (elementwise 1e-4)."""
     import torch
-    from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import transformer as T
     from repro_torch.models.config import get_config
 
     cfg = get_config(MOE_ARCH)
     served, launches = _serve_launcher(MOE_ARCH)
     out = {"launches": launches, "peak_memory_gb": served.peak_memory_gb,
-           **_warm_serving(cfg, served)}
-    prefill = build_prefill_step(cfg, PROMPT + GEN)
-    decode = build_decode_step(cfg)
-    batch = {"tokens": served.prompts}
-    out["traced_prefill"] = _trace(lambda: prefill(served.params, batch), 1)
-    logits, cache = prefill(served.params, batch)
-    state = {"tok": logits.argmax(-1), "cache": cache}
-
-    def step():
-        lg, state["cache"] = decode(served.params, state["cache"], state["tok"])
-        state["tok"] = lg.argmax(-1)
-
-    out["traced_decode_step"] = _trace(step, 4)
-    del served, state, cache, logits
+           **_warm_serving(cfg, served), **_traced_serving(cfg, served)}
+    del served
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4399,31 +4427,68 @@ def phase_moe_serve():
 
 
 def phase_moe_lora_train():
-    """gpt-oss-20b at full width and ``MOE_LORA_LAYERS`` of its 24 layers (a
-    depth cut) through the launcher: LoRA rank 8 over the attention
+    """gpt-oss-20b at ``MOE_LORA_LAYERS`` of its 24 layers: ``_lora_train``."""
+    return _lora_train(MOE_ARCH, MOE_LORA_LAYERS)
+
+
+def _base_is_seeded_init(params, cfg, seed=0):
+    """Whether the base of ``params`` (a padded layer pool) is bit for bit
+    ``T.init_params(cfg, Generator(seed))``, the launcher's init, and its
+    padding rows zero: drawn again in ``init_params``' order (the embedding,
+    the layers, the head), one layer at a time, so that no second copy of
+    the model is held."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_normal
+    from repro_torch.optim.adam import tree_leaves
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    d, dt = cfg.d_model, params["embed"].dtype
+    same = torch.equal(init_normal((cfg.vocab_size, d), 1.0 / math.sqrt(d), gen, dt, DEVICE),
+                       params["embed"])
+    for i, layer in enumerate(params["layers"]):
+        if i >= cfg.n_layers:            # the padding rows
+            same = same and not any(bool(x.any()) for x in tree_leaves(layer))
+            continue
+        fresh = T.init_layer(gen, cfg, dt, DEVICE)
+        same = same and _leaf_names(fresh) == _leaf_names(layer) and all(
+            map(torch.equal, tree_leaves(fresh), tree_leaves(layer)))
+        del fresh
+    same = same and all(bool((x == 1).all()) for x in tree_leaves(params["final_norm"]))
+    if not cfg.tie_embeddings:
+        same = same and torch.equal(init_normal((d, cfg.vocab_size), 1.0 / math.sqrt(d), gen, dt,
+                                                DEVICE), params["lm_head"])
+    return same
+
+
+def _lora_train(arch, layers, partition="auto", repeat_lr=3e-4, fresh_opt=False):
+    """``arch`` at full width and ``layers`` of its layers (a depth cut)
+    through the launcher, its plan from ``--partition partition``: LoRA rank
+    8 over the attention
     (``--lora-targets attn``: the experts and the router stay frozen, as
     ``applicable_targets`` has it), one round, prefetch on, the counts set
     to 0 just before and read just after and held against the plan, finite
     losses, the base bit-identical to its seeded initial weights, every
-    adapter B moved. Then 3 steps on one repeated batch from the final state
-    (lr 3e-4), the middle one traced (slot kinds, the untied head's dense
-    copy): the loss falls. Then the fp32 LoRA ring against the single
+    adapter B moved. Then 3 steps on one repeated batch from the final
+    weights at lr ``repeat_lr`` (with ``fresh_opt`` from a fresh AdamW
+    state, else from the launcher's moments), the middle one traced (slot
+    kinds, the untied head's dense copy): the loss falls. Then the fp32 LoRA
+    ring against the single
     program on the merged weights at full width and 2 layers with the
     capacity factor E/k: capacity follows the micro-batch, so with drops the
     ring and the single program route differently by design (loss rtol
     1e-4, worst relative 5e-3)."""
     import torch
-    from repro_torch.core.dispatch import build_roundpipe_train_step, pad_pool
+    from repro_torch.core.dispatch import build_roundpipe_train_step
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.launch import train
     from repro_torch.launch.steps import StepConfig
-    from repro_torch.models import transformer as T
     from repro_torch.models.config import get_config
-    from repro_torch.models.lora import at_path, target_leaf_paths
+    from repro_torch.models.lora import at_path, param_mask, target_leaf_paths
     from repro_torch.optim import OptConfig
-    from repro_torch.optim.adam import tree_leaves
+    from repro_torch.optim.adam import init_opt_state, trainable_leaves
 
-    name = _cut_arch(MOE_ARCH, n_layers=MOE_LORA_LAYERS)
+    name = _cut_arch(arch, n_layers=layers)
     cfg = get_config(name)
     lcfg = _lora_cfg(cfg)
     counters = _train_counters()
@@ -4432,7 +4497,7 @@ def phase_moe_lora_train():
     for fn in counters.values():
         fn.launches = 0
     out = train.main(["--arch", name, "--strategy", "roundpipe", "--mesh", f"1x{TRAIN_WORKERS}",
-                      "--partition", "auto", "--batch", str(TRAIN_BATCH), "--seq",
+                      "--partition", partition, "--batch", str(TRAIN_BATCH), "--seq",
                       str(TRAIN_SEQ), "--lora-rank", str(LORA_RANK), "--lora-targets",
                       ",".join(lcfg.target_modules), "--steps", str(TRAIN_STEPS),
                       "--log-every", "1", "--device", DEVICE])
@@ -4440,19 +4505,15 @@ def phase_moe_lora_train():
     peak = torch.cuda.max_memory_allocated()
     plan = out["plan"]
     want = {k: v for k, v in _ring_launches(plan, TRAIN_STEPS, False).items() if k in counters}
-    print(f"MoE LoRA train ({name}, r={LORA_RANK}, targets {lcfg.target_modules}, plan "
+    print(f"LoRA train ({name}, r={LORA_RANK}, targets {lcfg.target_modules}, plan "
           f"{plan.describe()}) launches: {launches} (the plan predicts {want}), peak memory "
           f"{peak / 1e9:.2f} GB, step ms {[x * 1e3 for x in out['step_s']]}")
     check(launches == want, f"{name}: training launches {launches} != the plan's {want}")
     check(all(math.isfinite(x) for x in out["losses"]), f"non-finite losses {out['losses']}")
 
     state = out.pop("state")
-    gen = torch.Generator(device=DEVICE).manual_seed(0)   # the launcher's seed: base first
-    init = pad_pool(T.init_params(cfg, gen, device=DEVICE), cfg, TRAIN_WORKERS)
     params = state["params"]
-    base_same = all(torch.equal(a, b) for key in ("layers", "embed", "final_norm", "lm_head")
-                    for a, b in zip(tree_leaves(init[key]), tree_leaves(params[key])))
-    del init
+    base_same = _base_is_seeded_init(params, cfg)    # the launcher's seed: base first
     check(base_same, f"{name}: the frozen base changed under LoRA training")
     paths = target_leaf_paths(params["layers"], lcfg)
     check(all(p.startswith("attn.") for p in paths), f"{name}: LoRA targets {paths}")
@@ -4462,9 +4523,12 @@ def phase_moe_lora_train():
 
     step_cfg = StepConfig(strategy="roundpipe", kv_chunk=min(1024, TRAIN_SEQ),
                           xent_chunk=min(256, TRAIN_SEQ), partition=plan, lora=lcfg,
-                          opt=OptConfig(lr=3e-4))
+                          opt=OptConfig(lr=repeat_lr))
     step, _ = build_roundpipe_train_step(cfg, TRAIN_WORKERS, step_cfg, TRAIN_BATCH, TRAIN_SEQ,
                                          plan=plan)
+    if fresh_opt:
+        state["opt"] = init_opt_state(trainable_leaves(params, param_mask(params)),
+                                      step_cfg.opt)
     data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.batch(0).items()}
     box = {"s": state}
@@ -4481,7 +4545,8 @@ def phase_moe_lora_train():
     one()
     traced = _trace(one, 1)
     one()
-    print(f"repeated batch ({name}, LoRA r={LORA_RANK}, lr 3e-4): losses {rep_losses}")
+    print(f"repeated batch ({name}, LoRA r={LORA_RANK}, lr {repeat_lr}"
+          f"{', fresh AdamW state' if fresh_opt else ''}): losses {rep_losses}")
     check(all(math.isfinite(x) for x in rep_losses), f"non-finite losses {rep_losses}")
     check(rep_losses[-1] < rep_losses[0],
           f"{name}: the loss does not fall on a repeated batch: {rep_losses}")
@@ -4489,32 +4554,119 @@ def phase_moe_lora_train():
     gc.collect()
     torch.cuda.empty_cache()
 
-    ring = _lora_ring_vs_single("float32", MOE_ARCH,
-                                capacity_factor=_no_drop(get_config(MOE_ARCH)).capacity_factor)
-    check(ring["loss_rel"] <= 1e-4, f"{MOE_ARCH} LoRA ring loss disagrees with the single "
+    ring = _lora_ring_vs_single("float32", arch,
+                                capacity_factor=_no_drop(get_config(arch)).capacity_factor)
+    check(ring["loss_rel"] <= 1e-4, f"{arch} LoRA ring loss disagrees with the single "
                                     "program (fp32)")
-    check(ring["worst_rel"] < 5e-3, f"{MOE_ARCH} LoRA ring grads disagree with the single "
+    check(ring["worst_rel"] < 5e-3, f"{arch} LoRA ring grads disagree with the single "
                                     "program (fp32)")
     report = {"launches": launches, "peak_memory_gb": peak / 1e9, "plan": plan.describe(),
               "step_ms": [x * 1e3 for x in out["step_s"]], "losses": out["losses"],
-              "repeated_batch_losses": rep_losses,
+              "repeated_batch_losses": rep_losses, "repeated_batch_lr": repeat_lr,
+              "repeated_batch_fresh_opt": fresh_opt,
               "repeated_batch_step_ms": [x * 1e3 for x in rep_s], "traced_step": traced,
               "base_bit_identical": base_same, "adapter_b_moved": b_moved,
               "ring_vs_single_fp32_2_layers": ring}
-    print(f"MoE LoRA train ({name}) " + json.dumps(report))
+    print(f"LoRA train ({name}) " + json.dumps(report))
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: MLA (deepseek-v2-236b), and the MoE configs the card had not run
+# ---------------------------------------------------------------------------
+
+MLA_SERVE_LAYERS = 4       # deepseek-v2-236b's 60 layers cut to 4: ~34.5 GB of bf16 weights
+MLA_LORA_LAYERS = 4        # and for the LoRA ring, on the uniform plan (a layer a slot): on
+                           # one card each logical worker holds its own copy of the block it
+                           # runs, and prefetch a standby beside them, so the auto plan's
+                           # 3-layer F[0..2] block would put 6 layers (45 GiB) beside the
+                           # 32.1 GiB pool; the uniform plan's peak is 5 (37.7 GiB)
+MLA_REPEAT_LR = 1e-4       # the repeated batch's lr, from a fresh AdamW state
+MLA_CHECK_PROMPT = 256     # the decode checks' prompt: at capacity E/k an expert's buffer
+                           # holds every token, 4.1 GB of fp32 a layer at B x 1056
+
+
+def phase_mla_serve():
+    """deepseek-v2-236b at full width and ``MLA_SERVE_LAYERS`` of its 60
+    layers (a depth cut) through ``serve.main``: ``BATCH`` x ``PROMPT``
+    tokens, ``GEN`` greedy tokens, launches (flash once a layer; no
+    flash-decode: MLA's decode attends in the compressed space) and finite
+    logits (``_serve_launcher``); warm prefill and decode steps, peak memory,
+    a traced prefill and a traced decode step. Decode is held against a
+    teacher-forced prefill (the absorbed decode against the materialised
+    keys and values) with the capacity factor E/k, where no assignment
+    drops, after ``MLA_CHECK_PROMPT`` tokens: bf16 over ``GEN`` steps at 1
+    layer (``_bf16_vs_truth``; the fp32 copy of a layer is 16.2 GB), fp32
+    over 4 steps at 2 layers (elementwise 1e-4). Then mixtral-8x7b and
+    qwen3-235b at full width and the depths of ``MOE_SERVE_CUTS`` through
+    ``serve.main``: launches, finite logits, warm prefill and decode, peak
+    memory."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import get_config
+
+    name = _cut_arch(MLA_ARCH, n_layers=MLA_SERVE_LAYERS)
+    cfg = get_config(name)
+    served, launches = _serve_launcher(name)
+    out = {"launches": launches, "peak_memory_gb": served.peak_memory_gb,
+           **_warm_serving(cfg, served), **_traced_serving(cfg, served)}
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1 = _no_drop(dataclasses.replace(get_config(MLA_ARCH), n_layers=1))
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    p16 = T.init_params(cfg1, gen, device=DEVICE)
+    toks = torch.randint(0, cfg1.vocab_size, (BATCH, MLA_CHECK_PROMPT), generator=gen,
+                         device=DEVICE)
+    got, fed = _serve_and_feed(p16, cfg1, {"tokens": toks}, GEN)
+    out["bf16_vs_teacher_1_layer"] = _bf16_vs_truth(p16, cfg1, fed, GEN, got)
+    del p16, got, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fp32_2_layers_max_abs"] = _fp32_vs_teacher(
+        _no_drop(dataclasses.replace(get_config(MLA_ARCH), n_layers=2)), MLA_CHECK_PROMPT, 4, 28)
+    print(f"MLA serve ({name}) " + json.dumps(out))
+
+    out["moe_cut"] = {}
+    for arch, layers in MOE_SERVE_CUTS.items():
+        cut = _cut_arch(arch, n_layers=layers)
+        served, run = _serve_launcher(cut)
+        out["moe_cut"][cut] = {"launches": run, "peak_memory_gb": served.peak_memory_gb,
+                               **_warm_serving(get_config(cut), served)}
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"MoE serve ({cut}) " + json.dumps(out["moe_cut"][cut]))
+    return out
+
+
+def phase_mla_lora_train():
+    """deepseek-v2-236b at ``MLA_LORA_LAYERS`` of its 60 layers on the
+    uniform plan (a layer a slot): ``_lora_train`` (LoRA over w_dkv, w_kpe
+    and w_o: the reference adapts stacked rank-3 leaves only, so w_q, w_uk
+    and w_uv stay frozen). Its repeated batch starts a fresh AdamW state at
+    lr ``MLA_REPEAT_LR``: carried on from the launcher's moments at 3e-4,
+    built on three other batches, the first step overshoots (10.49, 11.00,
+    10.49 on the card), so the check would read where the momentum left the
+    weights rather than whether a step on this batch descends."""
+    return _lora_train(MLA_ARCH, MLA_LORA_LAYERS, partition="uniform",
+                       repeat_lr=MLA_REPEAT_LR, fresh_opt=True)
+
+
 def phase_family_timings(errs, launches):
-    """The instances this slice's paths run that no earlier path did, bf16,
-    beside their bounds, their plain versions and a PyTorch call (a
-    yardstick only: the port never calls it): the flash forward and backward
-    at hubert-xlarge's training shape (one ring worker's B=2, S=1024, 16
-    bidirectional heads of 80, padded to 128; SDPA's forward, and its
-    backward alone queued behind a sleep kernel), the cross-entropy forward
-    at its head (T=2048, D=1280, V=504, untied; ``F.cross_entropy(x @ W)``)
-    and flash-decode at the group-8 serving caches of internvl2-76b (D 128)
-    and gpt-oss-20b (D 64), B=4, S=1056. Rows of the ``kernels`` line named
+    """The instances the front-end, MoE and MLA paths run that no earlier
+    path did, bf16, beside their bounds, their plain versions and a PyTorch
+    call (a yardstick only: the port never calls it): the flash forward and
+    backward at hubert-xlarge's training shape (one ring worker's B=2,
+    S=1024, 16 bidirectional heads of 80, padded to 128) and at
+    deepseek-v2-236b's MLA (the forward at the prefill's B=4, the backward
+    at one ring worker's B=2; S=1024, 128 heads, Dh 192 against Dv 128,
+    causal; SDPA's forward, and its backward alone queued behind a sleep
+    kernel), the cross-entropy forward at both untied heads (T=2048; D=1280,
+    V=504 and D=5120, V=102,400; ``F.cross_entropy(x @ W)``) and
+    flash-decode at the group-8 serving caches of internvl2-76b (D 128) and
+    gpt-oss-20b (D 64), B=4, S=1056. Rows of the ``kernels`` line named
     ``<kernel>@<arch>``; launches are those of that arch's runs."""
     import torch
     import torch.nn.functional as F
@@ -4539,62 +4691,84 @@ def phase_family_timings(errs, launches):
         r.update({"shape": shape, **extra})
         rows.append(r)
 
-    # hubert-xlarge: the bidirectional forward and backward at D 80
-    a = _attn(AUDIO_ARCH)
-    h, kh, d = a["h"], a["kh"], a["d"]
-    bw, s = TRAIN_BATCH // TRAIN_WORKERS, TRAIN_SEQ
-    shape = f"B={bw}, S={s}, H={h}, KH={kh}, D={d}, bidirectional, bf16"
-    sets = [_flash_inputs(bw, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
-    kern = lambda q, k, v: flash_attention(q, k, v, causal=False)   # noqa: E731
-    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st) for st in sets]
-    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v)   # noqa: E731
-    device_ms = _graph_ms(kern, sets, 5)
-    flops = 2 * bw * h * s * s * (d + d)
-    row("flash_attention", AUDIO_ARCH, "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:78", shape, _time_ms(kern, sets, 10),
-        _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=False), sets[:2], 3),
-        _time_ms(sdpa, lib_sets, 10), (2 * bw * s * h * d + 2 * bw * s * kh * d) * elem, flops,
-        device_ms=device_ms, library_device_ms=_graph_ms(sdpa, lib_sets, 5),
-        tflops=flops / (device_ms * 1e-3) / 1e12)
-    bwd_sets, sdpa_sets = [], []
-    for q, k, v in sets:
-        o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
-        bwd_sets.append((q, k, v, o, lse, _rand(o.shape, bf16, gen)))
-    for q, k, v, o, lse, do in bwd_sets:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-        with torch.enable_grad():
-            ot = F.scaled_dot_product_attention(qt, kt, vt)
-        sdpa_sets.append((ot, (qt, kt, vt), do.transpose(1, 2).contiguous()))
-    bwd = lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
-                                                          causal=False)
-    sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
-                                                           retain_graph=True)
-    queued = _queued_ms(bwd, bwd_sets, 10)
-    flops = 5 * 2 * bw * h * s * s * d
-    row("flash_attention_bwd", AUDIO_ARCH, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "none (the reference differentiates jnp chunked_attention, "
-        "src/repro/models/layers.py:76)", shape, _time_ms(bwd, bwd_sets, 10),
-        _time_ms(lambda *t: ref.flash_attention_bwd_ref(*t, causal=False), bwd_sets[:2], 3),
-        _time_ms(sdpa_bwd, sdpa_sets, 10),
-        (4 * bw * s * h * d + 4 * bw * s * kh * d) * elem + bw * h * s * 4, flops,
-        device_ms=_graph_ms(bwd, bwd_sets, 5), device_queued_ms=queued,
-        library_device_queued_ms=_queued_ms(sdpa_bwd, sdpa_sets, 10),
-        library_note="SDPA's backward alone", tflops=flops / (queued * 1e-3) / 1e12)
-    del sets, lib_sets, bwd_sets, sdpa_sets
+    def attention_rows(arch, fwd_b, causal):
+        """The forward at ``fwd_b`` rows and the backward at one ring
+        worker's, at ``arch``'s heads (H = KH) and the training sequence."""
+        a = _attn(arch)
+        h, kh, dh, dv = a["h"], a["kh"], a["dh"], a["dv"]
+        bw, s = TRAIN_BATCH // TRAIN_WORKERS, TRAIN_SEQ
+        pairs = s * (s + 1) // 2 if causal else s * s
+        mask = "causal" if causal else "bidirectional"
+        dims = f"D={dh}" if dh == dv else f"Dh={dh}, Dv={dv}"
+        sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v,  # noqa: E731
+                                                              is_causal=causal)
+        sets = [_flash_inputs(fwd_b, s, h, kh, dh, dv, bf16, "bshd", gen) for _ in range(4)]
+        kern = lambda q, k, v: flash_attention(q, k, v, causal=causal)   # noqa: E731
+        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in st) for st in sets]
+        device_ms = _graph_ms(kern, sets, 5)
+        flops = 2 * fwd_b * h * pairs * (dh + dv)
+        row("flash_attention", arch, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:78",
+            f"B={fwd_b}, S={s}, H={h}, KH={kh}, {dims}, {mask}, bf16", _time_ms(kern, sets, 10),
+            _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=causal), sets[:2],
+                     3),
+            _time_ms(sdpa, lib_sets, 10), fwd_b * s * (h * dh + kh * dh + kh * dv + h * dv) * elem,
+            flops, device_ms=device_ms, library_device_ms=_graph_ms(sdpa, lib_sets, 5),
+            tflops=flops / (device_ms * 1e-3) / 1e12)
+        del sets, lib_sets
+        bwd_sets, sdpa_sets = [], []
+        for _ in range(4):
+            q, k, v = _flash_inputs(bw, s, h, kh, dh, dv, bf16, "bshd", gen)
+            o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+            bwd_sets.append((q, k, v, o, lse, _rand(o.shape, bf16, gen)))
+        for q, k, v, o, lse, do in bwd_sets:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                ot = sdpa(qt, kt, vt)
+            sdpa_sets.append((ot, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+        bwd = lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                                              causal=causal)
+        sdpa_bwd = lambda ot, leaves, dot: torch.autograd.grad(ot, leaves, dot,  # noqa: E731
+                                                               retain_graph=True)
+        queued = _queued_ms(bwd, bwd_sets, 10)
+        flops = 2 * bw * h * pairs * (3 * dh + 2 * dv)
+        row("flash_attention_bwd", arch, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "none (the reference differentiates jnp chunked_attention, "
+            "src/repro/models/layers.py:76)", f"B={bw}, S={s}, H={h}, KH={kh}, {dims}, {mask}, "
+            "bf16", _time_ms(bwd, bwd_sets, 10),
+            _time_ms(lambda *t: ref.flash_attention_bwd_ref(*t, causal=causal), bwd_sets[:2], 3),
+            _time_ms(sdpa_bwd, sdpa_sets, 10),
+            bw * s * 2 * (h * dh + kh * dh + kh * dv + h * dv) * elem + bw * h * s * 4, flops,
+            device_ms=_graph_ms(bwd, bwd_sets, 5), device_queued_ms=queued,
+            library_device_queued_ms=_queued_ms(sdpa_bwd, sdpa_sets, 10),
+            library_note="SDPA's backward alone", tflops=flops / (queued * 1e-3) / 1e12)
+        del bwd_sets, sdpa_sets
 
-    # the cross-entropy forward at hubert-xlarge's untied 504-unit head
-    cfg = get_config(AUDIO_ARCH)
-    t, dm, vocab = bw * s, cfg.d_model, cfg.vocab_size
-    xs = [_xent_inputs(t, dm, vocab, bf16, "dense", 4, gen) for _ in range(4)]
-    kern = lambda x, w, lab: fused_xent(x, w, lab)   # noqa: E731
-    lib = lambda x, w, lab: F.cross_entropy(x @ w, lab, reduction="none")   # noqa: E731
-    row("fused_xent", AUDIO_ARCH, "src/repro_torch/kernels/csrc/fused_xent.cu",
-        "src/repro/kernels/fused_xent.py:85", f"T={t}, D={dm}, V={vocab}, untied, bf16",
-        _time_ms(kern, xs, 10), _time_ms(lambda x, w, lab: ref.fused_xent_ref(x, w, lab), xs, 3),
-        _time_ms(lib, xs, 10), (t * dm + vocab * dm) * elem + t * 8 + 2 * t * 4,
-        2 * t * dm * vocab, device_ms=_graph_ms(kern, xs, 5),
-        library_device_ms=_graph_ms(lib, xs, 5))
-    del xs
+    def xent_row(arch):
+        """The cross-entropy forward at one ring worker's tokens and
+        ``arch``'s untied head."""
+        cfg = get_config(arch)
+        t, dm, vocab = TRAIN_BATCH // TRAIN_WORKERS * TRAIN_SEQ, cfg.d_model, cfg.vocab_size
+        xs = [_xent_inputs(t, dm, vocab, bf16, "dense", 4, gen) for _ in range(4)]
+        kern = lambda x, w, lab: fused_xent(x, w, lab)   # noqa: E731
+        lib = lambda x, w, lab: F.cross_entropy(x @ w, lab, reduction="none")   # noqa: E731
+        row("fused_xent", arch, "src/repro_torch/kernels/csrc/fused_xent.cu",
+            "src/repro/kernels/fused_xent.py:85", f"T={t}, D={dm}, V={vocab}, untied, bf16",
+            _time_ms(kern, xs, 10),
+            _time_ms(lambda x, w, lab: ref.fused_xent_ref(x, w, lab), xs, 3),
+            _time_ms(lib, xs, 10), (t * dm + vocab * dm) * elem + t * 8 + 2 * t * 4,
+            2 * t * dm * vocab, device_ms=_graph_ms(kern, xs, 5),
+            library_device_ms=_graph_ms(lib, xs, 5))
+        del xs
+
+    # hubert-xlarge: the bidirectional forward and backward at D 80 and its
+    # 504-unit head; deepseek-v2-236b: MLA's Dh-192/Dv-128 instance, causal,
+    # and its head of 102,400
+    attention_rows(AUDIO_ARCH, TRAIN_BATCH // TRAIN_WORKERS, causal=False)
+    xent_row(AUDIO_ARCH)
+    attention_rows(MLA_ARCH, BATCH, causal=True)
+    xent_row(MLA_ARCH)
+    torch.cuda.empty_cache()
 
     # flash-decode at the group-8 serving caches
     w = PROMPT + GEN
@@ -4621,7 +4795,7 @@ def phase_family_timings(errs, launches):
             library_device_ms=_graph_ms(sdpa, lib_sets, 20))
         del sets, lib_sets
     torch.cuda.empty_cache()
-    print("front end and MoE kernel timings " + json.dumps(rows))
+    print("front end, MoE and MLA kernel timings " + json.dumps(rows))
     return rows
 
 
@@ -4809,11 +4983,13 @@ def main() -> int:
     rows += scan_rows
     rows += phase_wide_timings(errs, wide_launches)
     family = {"frontend_serve": phase_frontend_serve(), "frontend_train": phase_frontend_train(),
-              "moe_serve": phase_moe_serve(), "moe_lora_train": phase_moe_lora_train()}
+              "moe_serve": phase_moe_serve(), "moe_lora_train": phase_moe_lora_train(),
+              "mla_serve": phase_mla_serve(), "mla_lora_train": phase_mla_lora_train()}
     family_launches = {}                     # the instances: each arch's runs
     for arch, run in ((VISION_ARCH, family["frontend_serve"]),
                       (AUDIO_ARCH, family["frontend_train"]), (MOE_ARCH, family["moe_serve"]),
-                      (MOE_ARCH, family["moe_lora_train"])):
+                      (MOE_ARCH, family["moe_lora_train"]), (MLA_ARCH, family["mla_serve"]),
+                      (MLA_ARCH, family["mla_lora_train"])):
         for name, n in run["launches"].items():
             family_launches[f"{name}@{arch}"] = family_launches.get(f"{name}@{arch}", 0) + n
     rows += phase_family_timings(errs, family_launches)
@@ -4844,7 +5020,7 @@ def main() -> int:
         {"chaos": chaos, "supervised_launcher": supervised, "rotation_traced_step": rotation,
          "dense_sync_one_round": {"traced_step": traced}}))
     print("wide timings " + json.dumps(wide))
-    print("front end and MoE timings " + json.dumps(family))
+    print("front end, MoE and MLA timings " + json.dumps(family))
     print("recurrent train timings " + json.dumps(recurrent_train))
     print("phase seconds " + json.dumps(seconds))
     print("device GB held after each phase (as it ended, after gc.collect) "

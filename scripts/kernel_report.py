@@ -45,7 +45,9 @@ flash-decode at gemma-2b's (H=8, KH=1, D=256) and stablelm-12b's (H=32, KH=8,
 D=160) prefill (B=4, S=1024) and serving cache (1056 slots), the wide forward
 at gemma-2b's heads over one 4096-token sequence, and the wide
 backward at gemma-2b's training shape (B=2, S=1024, H=8, KH=1, D=256) and
-nemotron-4-340b's (B=2, S=1024, H=96, KH=8, D=192), bf16, the same ways: run it
+nemotron-4-340b's (B=2, S=1024, H=96, KH=8, D=192), and MLA's instance of
+both at deepseek-v2-236b's shapes (H=KH=128, Dh=192, Dv=128, S=1024; the
+forward at B=4, the backward at B=2), bf16, the same ways: run it
 from a ``git archive`` of another commit (with this script copied into its
 ``scripts/``) and from this tree in one call to compare two commits' kernels
 on one card; it also prints the wide forward's max abs error against the
@@ -208,15 +210,22 @@ def scan_times():
 WIDE_BWD_SHAPES = (("gemma", 2, 1024, 8, 1, 256), ("nemotron", 2, 1024, 96, 8, 192))
 
 
-def _bwd_sets(b, s, h, kh, d, gen, n=4):
+# MLA's instance (deepseek-v2-236b): 128 heads, each with its own key of 192
+# (128 + 64 of RoPE) and a value of 128; the forward at the prefill's B=4, the
+# backward at one ring worker's B=2, S=1024, causal
+MLA_SHAPE = (1024, 128, 128, 192, 128)
+
+
+def _bwd_sets(b, s, h, kh, d, gen, n=4, dv=None):
     """``n`` cold input sets of the flash backward, bf16 (``chip_smoke.py``'s
-    inputs and the forward's own output and log-sum-exp)."""
+    inputs and the forward's own output and log-sum-exp); values of ``dv``
+    dims where given, else ``d``."""
     import torch
     import chip_smoke as cs
     from repro_torch.kernels.flash_attention import flash_attention
     sets = []
     for _ in range(n):
-        q, k, v = cs._flash_inputs(b, s, h, kh, d, d, torch.bfloat16, "bshd", gen)
+        q, k, v = cs._flash_inputs(b, s, h, kh, d, dv or d, torch.bfloat16, "bshd", gen)
         o, lse = flash_attention(q, k, v, return_lse=True)
         sets.append((q, k, v, o, lse, cs._rand(o.shape, torch.bfloat16, gen)))
     return sets
@@ -308,8 +317,8 @@ def attention_times():
     """Device ms per call of the flash forward, the flash backward and
     flash-decode at the Dh <= 128 shapes of the main path, of the wide
     forward and flash-decode (``WIDE_FWD_SHAPES``) and of the wide backward
-    instances (``WIDE_BWD_SHAPES``) (``chip_smoke.py``'s inputs, cold
-    sets); then the wide forward's max abs error against the plain version
+    instances (``WIDE_BWD_SHAPES``) and of MLA's (``MLA_SHAPE``)
+    (``chip_smoke.py``'s inputs, cold sets); then the wide forward's max abs error against the plain version
     at ``WIDE_RISING_SHAPES``."""
     import torch
     import chip_smoke as cs
@@ -335,6 +344,12 @@ def attention_times():
     for label, b, s, h, kh, d in WIDE_BWD_SHAPES:
         out[f"flash_bwd_{label}"] = _device_times(flash_attention_bwd,
                                                   _bwd_sets(b, s, h, kh, d, gen))
+    s, h, kh, dh, dv = MLA_SHAPE
+    sets = [cs._flash_inputs(4, s, h, kh, dh, dv, bf16, "bshd", gen) for _ in range(4)]
+    out["flash_mla"] = _device_times(lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
+    del sets
+    out["flash_bwd_mla"] = _device_times(flash_attention_bwd,
+                                         _bwd_sets(2, s, h, kh, dh, gen, dv=dv))
     for label, b, s, h, kh, d in WIDE_FWD_SHAPES + (WIDE_LONG_SHAPE,):
         sets = [cs._flash_inputs(b, s, h, kh, d, d, bf16, "bshd", gen) for _ in range(4)]
         out[f"flash_{label}"] = _device_times(

@@ -1,7 +1,7 @@
 """Architecture registry of the port: importing this package registers every
-config the port runs. Later slices add the other architectures of
-``repro/configs`` as their model families are ported."""
+config the port runs: every architecture of ``repro/configs``."""
 from . import (  # noqa: F401
+    deepseek_v2_236b,
     gemma_2b,
     gpt_oss_20b,
     hubert_xlarge,

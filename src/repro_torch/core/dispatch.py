@@ -486,6 +486,9 @@ def _drive(params, batches, grad_residual, update, *, cfg: ModelConfig, plan, pr
                     do_fused(p, spec, blk, slot_i, ri, st)
                 else:
                     do_bwd(p, spec, blk, ri, st)
+        # drop the loop's hold on the last worker's block: it leaves the ring
+        # at the next hop, before the next standby is allocated
+        blk = ablk = None
         # the slot exiting at logical worker N-1 deposits its reduced rows;
         # each round's wave sums into the same rows
         if rec.deposit is not None:

@@ -76,20 +76,21 @@ def flat_leaves(tree) -> list:
     return [tree]
 
 
+def _fill(node, it):
+    if isinstance(node, dict):
+        got = {k: _fill(node[k], it) for k in sorted(node)}
+        return {k: got[k] for k in node}
+    if isinstance(node, list):
+        return [_fill(v, it) for v in node]
+    return next(it)
+
+
 def unflatten_like(template, leaves):
     """``template``'s structure, in its own key order, holding ``leaves``
-    given in ``flat_leaves`` order."""
-    it = iter(leaves)
-
-    def fill(node):
-        if isinstance(node, dict):
-            got = {k: fill(node[k]) for k in sorted(node)}
-            return {k: got[k] for k in node}
-        if isinstance(node, list):
-            return [fill(v) for v in node]
-        return next(it)
-
-    return fill(template)
+    given in ``flat_leaves`` order. The walk is a module function: a closure
+    that calls itself is a reference cycle, which would keep ``leaves`` (a
+    promoted standby's views) alive until the garbage collector runs."""
+    return _fill(template, iter(leaves))
 
 
 def shift_perm(n: int, g0: int = 0) -> list[tuple[int, int]]:

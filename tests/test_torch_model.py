@@ -7,7 +7,6 @@ fp32 logits are held at rtol/atol 1e-4 (the loss bar of the reference's own
 ring harness; the two frameworks sum in different orders), bf16 at 2e-2 on
 the relative norm (the bf16 test says why).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -135,15 +134,6 @@ def test_init_params_has_reference_leaves(dtype):
     # the reference's scales: N(0, 1/d) embeddings, unit norms
     assert abs(port["embed"].float().std().item() * np.sqrt(cfg.d_model) - 1) < 0.05
     assert torch.equal(port["final_norm"]["scale"].float(), torch.ones(cfg.d_model))
-
-
-def test_non_dense_families_raise():
-    """MLA is not ported yet; rwkv6 and hybrid are (test_torch_ssm.py), and
-    MoE and the embeds front end (test_torch_moe.py, test_torch_frontend.py)."""
-    cfg = smoke_config(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        T.init_params(dataclasses.replace(cfg, attn_kind="mla"), torch.Generator(),
-                      device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,6 @@ their plain versions (the kernels run only on the card). The serving
 launcher serves both archs on the CPU; their training is
 ``tests/test_torch_recurrent_train.py``'s.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -198,11 +197,3 @@ def test_serve_smoke_on_cpu(arch, capsys):
     assert lines[1].startswith("decode: 3 steps in ")
     assert tuple(out.tokens.shape) == (2, 3)
     assert all(bool(torch.isfinite(lg).all()) for lg in out.logits)
-
-
-def test_moe_and_mla_still_raise_by_name():
-    """MLA still raises by name; MoE is ported (tests/test_torch_moe.py)."""
-    cfg = smoke_config(get_config("hymba-1.5b"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        T.init_params(dataclasses.replace(cfg, attn_kind="mla"), torch.Generator(),
-                      device="cpu")
